@@ -415,13 +415,20 @@ CP_HD void epnp_candidates(const Problem& P, float* R1, float* t1, float* R2, fl
   pose_from_null(P, alpha, ctrl_w, vker2, R2, t2);
 }
 
+// LM refinement alone from (R, t), in place: lambda starts at 1e-4 and err at 0, as
+// casapose_tpu/ops/pnp_kernel.py's _lm_kernel; returns err of the last iteration.
+CP_HD float lm_refine(const Problem& P, int iterations, float* R, float* t) {
+  float lam = 1e-4f, err = 0.0f;
+  for (int it = 0; it < iterations; ++it) err = lm_body(P, R, t, lam);
+  return err;
+}
+
 // Full solve: both EPnP candidates, LM from each, the lower error wins.
 CP_HD void solve(const Problem& P, int iterations, float* R, float* t, float* err) {
   float Ra[9], ta[3], Rb[9], tb[3];
   epnp_candidates(P, Ra, ta, Rb, tb);
-  float lam_a = 1e-4f, lam_b = 1e-4f, err_a = 0.0f, err_b = 0.0f;
-  for (int it = 0; it < iterations; ++it) err_a = lm_body(P, Ra, ta, lam_a);
-  for (int it = 0; it < iterations; ++it) err_b = lm_body(P, Rb, tb, lam_b);
+  const float err_a = lm_refine(P, iterations, Ra, ta);
+  const float err_b = lm_refine(P, iterations, Rb, tb);
   const bool use_a = err_a <= err_b;
   for (int i = 0; i < 9; ++i) R[i] = use_a ? Ra[i] : Rb[i];
   for (int i = 0; i < 3; ++i) t[i] = use_a ? ta[i] : tb[i];

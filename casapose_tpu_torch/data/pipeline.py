@@ -1,0 +1,208 @@
+"""Host batch pipeline for evaluation, and the device-side batch finishing.
+
+Counterpart of ``casapose_tpu/data/pipeline.py`` for the evaluation
+settings: sample indices -> [thread pool] decode + affine warp + crop +
+resize -> batch assembly -> bounded prefetch queue, then
+:func:`prepare_device_batch` on the device (image normalisation, one-hot
+target segmentation).
+
+Images are decoded with cv2 where it is installed, else with Pillow, as
+the JAX package does; with neither, decoding raises. Not ported yet: the
+photometric augmentation (``use_imgaug``), the colour jitter and noise of
+training, and the pre-decoded record cache.
+"""
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+try:
+    import cv2
+except ImportError:
+    cv2 = None
+try:
+    from PIL import Image
+except ImportError:
+    Image = None
+
+
+def _no_decoder(path):
+    return RuntimeError(f"cannot decode {path}: neither cv2 nor Pillow is installed")
+
+
+def _decode_image(path, color):
+    if cv2 is not None:
+        img = cv2.imread(path, cv2.IMREAD_COLOR if color else cv2.IMREAD_GRAYSCALE)
+        if img is not None:
+            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if color else img[..., None]
+    if Image is None:
+        raise _no_decoder(path)
+    img = Image.open(path)
+    if color:
+        return np.asarray(img.convert("RGB"), np.uint8)
+    return np.asarray(img.convert("L"), np.uint8)[..., None]
+
+
+def _decode_seg(path):
+    if cv2 is not None:
+        arr = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        # Only single-channel masks take cv2: it expands palette PNGs to BGR, losing the class ids.
+        if arr is not None and arr.ndim == 2:
+            return arr.astype(np.uint8)
+    if Image is None:
+        raise _no_decoder(path)
+    arr = np.asarray(Image.open(path))
+    if arr.ndim == 3:
+        arr = arr[..., 0]
+    return arr.astype(np.uint8)
+
+
+def _warp_crop_resize(img, seg, meta, imagesize):
+    """Affine warp (dst -> src convention), crop, resize, as the JAX package's loader."""
+    off = meta["offsets"]
+    h_crop, w_crop, out_h, out_w = int(off[0]), int(off[1]), int(off[2]), int(off[3])
+    identity = abs(off[4]) < 1e-6 and abs(off[5]) < 1e-6 and abs(off[6]) < 1e-6
+    if not identity and cv2 is not None:
+        h, w = img.shape[:2]
+        img = cv2.warpAffine(img, meta["affine"][:2], (w, h), flags=cv2.INTER_LINEAR | cv2.WARP_INVERSE_MAP)
+        if img.ndim == 2:
+            img = img[..., None]
+        seg = cv2.warpAffine(seg, meta["affine"][:2], (w, h), flags=cv2.INTER_NEAREST | cv2.WARP_INVERSE_MAP)
+    img = img[h_crop : h_crop + out_h, w_crop : w_crop + out_w]
+    seg = seg[h_crop : h_crop + out_h, w_crop : w_crop + out_w]
+    if (out_h, out_w) != tuple(imagesize):
+        if cv2 is not None:
+            img = cv2.resize(img, (imagesize[1], imagesize[0]), interpolation=cv2.INTER_LINEAR)
+            if img.ndim == 2:
+                img = img[..., None]
+            seg = cv2.resize(seg, (imagesize[1], imagesize[0]), interpolation=cv2.INTER_NEAREST)
+        else:
+            yi = (np.arange(imagesize[0]) * out_h / imagesize[0]).astype(int)
+            xi = (np.arange(imagesize[1]) * out_w / imagesize[1]).astype(int)
+            img = img[yi][:, xi]
+            seg = seg[yi][:, xi]
+    return img, seg
+
+
+def _remap_labels(seg, new_labels):
+    """Raw segmentation ids -> contiguous object indices (0 = background)."""
+    out = np.zeros_like(seg)
+    for src, dst in new_labels:
+        if dst != 0:
+            out[seg == src] = dst
+    return out
+
+
+class BatchIterator:
+    """Iterator over ``epochs`` epochs of a dataset with a bounded prefetch queue, fed by a producer thread."""
+
+    def __init__(self, dataset, indices, epochs, batchsize, imagesize, cropratio, max_count, workers, prefetch, shuffle,
+                 seed, drop_remainder=True):
+        self.dataset = dataset
+        self.epochs = epochs
+        self.indices = indices
+        self.batchsize = batchsize
+        self.drop_remainder = drop_remainder
+        self.imagesize = imagesize
+        self.cropratio = cropratio
+        self.max_count = max_count
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.pool = ThreadPoolExecutor(max_workers=max(workers, 1))
+        self.queue = queue.Queue(maxsize=max(prefetch, 2))
+        self._stop = False
+        self.producer = threading.Thread(target=self._produce, daemon=True)
+        self.producer.start()
+
+    def _sample(self, index, seed):
+        ds = self.dataset
+        rng = np.random.default_rng(seed)
+        path, _, _, seg_path, _ = ds.imgs[index]
+        img = _decode_image(path, ds.color_input)
+        seg = _decode_seg(seg_path)
+        meta = ds.preprocess_sample(index, self.imagesize, self.cropratio, self.max_count, rng, (img.shape[1], img.shape[0]))
+        img, seg = _warp_crop_resize(img, seg, meta, self.imagesize)
+        meta["img"] = img
+        meta["seg"] = _remap_labels(seg, meta["new_labels"])[..., None]
+        return meta
+
+    def _emit(self, idxs):
+        seeds = self.rng.integers(0, 2**63 - 1, size=len(idxs))
+        samples = list(self.pool.map(self._sample, idxs, seeds))
+        batch = {}
+        for key in samples[0]:
+            if key == "image_id":
+                batch[key] = np.asarray([[s[key]] for s in samples])
+            else:
+                batch[key] = np.stack([s[key] for s in samples])
+        while not self._stop:
+            try:
+                self.queue.put(batch, timeout=1.0)
+                return
+            except queue.Full:
+                continue
+
+    def _produce(self):
+        if not self.indices or (self.drop_remainder and len(self.indices) < self.batchsize):
+            return
+        for _ in range(self.epochs):
+            order = np.array(self.indices)
+            if self.shuffle:
+                self.rng.shuffle(order)
+            full_end = len(order) - len(order) % self.batchsize
+            starts = list(range(0, full_end, self.batchsize))
+            if not self.drop_remainder and full_end < len(order):
+                starts.append(full_end)  # one short batch per epoch: no image is dropped
+            for start in starts:
+                if self._stop:
+                    return
+                self._emit(order[start : start + self.batchsize])
+
+    def get_next(self):
+        return self.queue.get()
+
+    def close(self):
+        """Stop the producer (it finishes the batch it is decoding), then the decode pool."""
+        self._stop = True
+        self.producer.join(timeout=60)
+        self.pool.shutdown(wait=False)
+
+
+def make_dataset(dataset, batchsize, epochs, prefetch, imagesize, cropratio, worker, no_objects, shuffle=True,
+                 mirrored_strategy=None, seed=None, record_cache_dir=None, drop_remainder=True):
+    """The JAX package's ``generate_dataset`` signature: returns (iterator, batches per epoch).
+
+    The iterator yields ``epochs`` epochs; the JAX package's loops forever.
+    ``drop_remainder=False`` keeps every image: the epoch ends with one short batch.
+    """
+    del no_objects, mirrored_strategy
+    if record_cache_dir or getattr(dataset, "record_cache_dir", None):
+        raise NotImplementedError("the record cache is not ported yet")
+    if dataset.use_imgaug:
+        raise NotImplementedError("photometric augmentation (use_imgaug) is not ported yet")
+    n = len(dataset.imgs)
+    data_size = n - n % batchsize if drop_remainder else n
+    epoch_batches = data_size // batchsize if drop_remainder else -(-data_size // batchsize)
+    it = BatchIterator(
+        dataset, list(range(data_size)), epochs, batchsize, imagesize, cropratio, max_count=1, workers=worker or 8,
+        prefetch=prefetch or 4, shuffle=shuffle, seed=seed, drop_remainder=drop_remainder,
+    )
+    return it, epoch_batches
+
+
+def prepare_device_batch(img_u8, labelmap, num_classes, normal=(0.5, 0.5), grayscale_to_rgb=False):
+    """Device-side batch finishing of the evaluation step.
+
+    uint8 image [b, h, w, c] -> (x / 255 - m) / s, grey repeated to RGB if
+    asked; label map [b, h, w, 1] -> one-hot target segmentation
+    [b, h, w, num_classes] float32.
+    """
+    img = (img_u8.to(torch.float32) / 255.0 - normal[0]) / normal[1]
+    if grayscale_to_rgb and img.shape[-1] == 1:
+        img = img.repeat(1, 1, 1, 3)
+    labels = labelmap[..., 0].to(torch.int64)
+    target_seg = (labels[..., None] == torch.arange(num_classes, device=labels.device)).to(torch.float32)
+    return img, target_seg

@@ -18,7 +18,7 @@ from casapose_tpu_torch.pose.evaluation import poses_pnp
 FLAGSHIP = "casapose_c_gcu5"
 
 
-def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generator=None, plain=False):
+def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generator=None):
     """Build the inference step and its model.
 
     Args:
@@ -27,8 +27,6 @@ def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generat
       h, w: image size the step is meant for (checked on each call).
       device: "cuda" (default) or "cpu"; CUDA raises where there is none.
       generator: ``torch.Generator`` for the random weights (default seed 0).
-      plain: run voting and PnP through the kernels' plain PyTorch versions
-        (for holding the kernels against them on the card).
     Returns:
       (step, model); ``step(img [b, h, w, 3], keypoints3d [b, oc, 1, k, 3],
       camera [b, 3, 3]) -> poses [b, oc, 1, 3, 4]``, all float32 on
@@ -48,8 +46,8 @@ def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generat
             seg = out[..., :seg_dim]
             dirs = out[..., seg_dim : seg_dim + 2 * k]
             conf = out[..., seg_dim + 2 * k :]
-            coords = ls_voting(seg, dirs, conf, num_points=k, filter_estimates=True, raw_output=out, plain=plain)
-            poses = poses_pnp(coords, seg, keypoints3d, camera, no_objects, plain=plain)
+            coords = ls_voting(seg, dirs, conf, num_points=k, filter_estimates=True, raw_output=out)
+            poses = poses_pnp(coords, seg, keypoints3d, camera, no_objects)
         return (poses, coords) if return_points else poses
 
     return step, model

@@ -50,8 +50,13 @@ class CASAPoseGCU5(nn.Module):
         self.pv_final_conv_segmentation = nn.Conv2d(raw_dim, seg_dim, 1, bias=False)
         self.pv_final_conv_vertex = nn.Conv2d(raw_dim, ver_dim, 1, bias=False)
 
-    def forward(self, img):
-        """img: [b, h, w, 3] float32 NHWC -> [b, h, w, seg_dim + ver_dim] NHWC."""
+    def forward(self, img, gt_seg=None):
+        """img: [b, h, w, 3] float32 NHWC -> [b, h, w, seg_dim + ver_dim] NHWC.
+
+        ``gt_seg`` [b, h, w, seg_dim] (one-hot GT, the
+        ``train_vectors_with_ground_truth`` mode) replaces the predicted
+        segmentation as the mask that conditions decoder 2.
+        """
         img = img.permute(0, 3, 1, 2)
         x2s, x4s, x8s, _, x32s = self.backbone(img)
         skips = [x32s, x8s, x4s, x2s, img]
@@ -65,7 +70,7 @@ class CASAPoseGCU5(nn.Module):
             x = resize_bilinear_2x(h) if 0 < i < 4 else h
         seg_logits = self.pv_final_conv_segmentation(x)
 
-        x_mask = hard_onehot(seg_logits, dim=1)
+        x_mask = hard_onehot(seg_logits if gt_seg is None else gt_seg.permute(0, 3, 1, 2), dim=1)
         m2 = half_size(x_mask)
         m4 = half_size(m2)
         m8 = half_size(m4)

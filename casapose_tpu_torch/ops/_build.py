@@ -30,6 +30,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "voting_accumulate": ("voting", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "solve_pnp": ("pnp", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "lm_refine": ("pnp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 SOURCES = sorted({src for src, _ in _SIGNATURES.values()})
 

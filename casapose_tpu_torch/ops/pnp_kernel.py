@@ -1,7 +1,8 @@
-"""Full PnP solve (EPnP init + Levenberg-Marquardt refine): kernel wrapper and plain version.
+"""Full PnP solve (EPnP init + Levenberg-Marquardt refine) and LM refinement alone:
+kernel wrappers and plain versions.
 
-Counterpart of ``casapose_tpu/ops/pnp_kernel.py::solve_pnp_pallas``. One
-solve per detection:
+Counterparts of ``casapose_tpu/ops/pnp_kernel.py::solve_pnp_pallas`` and
+``::lm_refine_pallas``. One solve per detection:
 
   * EPnP with axis-aligned control points: a 12x12 M^T M from closed-form
     sums in normalised camera coordinates, its two smallest eigenvectors by
@@ -13,7 +14,9 @@ solve per detection:
     the lower reprojection error wins.
 
 :func:`solve_pnp_kernel` launches the CUDA kernel ``csrc/pnp.cu`` for CUDA
-tensors and runs :func:`solve_pnp_plain` for CPU tensors. The plain version
+tensors and runs :func:`solve_pnp_plain` for CPU tensors; :func:`lm_refine`
+and :func:`lm_refine_plain` do the same for the LM stage alone from a given
+(R0, t0). The plain version
 follows the kernel's algorithm step by step (the Pallas kernel's
 ``_epnp_candidates_grid``, ``_lm_body``, ``_chol_solve6``,
 ``_exp_so3_grid`` and winner pick), on [B, 1] and [B, N] tensors; it is not
@@ -320,19 +323,39 @@ def solve_pnp_plain(pts2d, pts3d, K, iterations=10):
     (R1, t1), (R2, t2) = _epnp_candidates(X, (U[0] - cx) / fx, (U[1] - cy) / fy)
     B = pts2d.shape[0]
 
-    def refine(R, t):
-        lam = torch.full((B, 1), 1e-4, dtype=pts2d.dtype, device=pts2d.device)
-        err = torch.zeros((B, 1), dtype=pts2d.dtype, device=pts2d.device)
-        for _ in range(iterations):
-            R, t, lam, err = _lm_body(R, t, lam, X, U, fx, fy, cx, cy)
-        return R, t, err
-
-    Ra, ta, erra = refine(R1, t1)
-    Rb, tb, errb = refine(R2, t2)
+    Ra, ta, erra = _refine(R1, t1, X, U, fx, fy, cx, cy, iterations)
+    Rb, tb, errb = _refine(R2, t2, X, U, fx, fy, cx, cy, iterations)
     use_a = erra <= errb
     R = torch.cat([torch.where(use_a, Ra[i][j], Rb[i][j]) for i in range(3) for j in range(3)], dim=1)
     t = torch.cat([torch.where(use_a, ta[i], tb[i]) for i in range(3)], dim=1)
     return R.view(B, 3, 3), t, torch.minimum(erra, errb)[:, 0]
+
+
+def _refine(R, t, X, U, fx, fy, cx, cy, iterations):
+    """``iterations`` LM steps from grids R (3x3 of [B, 1]) and t (3 of [B, 1]); lambda from 1e-4, err from 0."""
+    lam = torch.full_like(t[0], 1e-4)
+    err = torch.zeros_like(t[0])
+    for _ in range(iterations):
+        R, t, lam, err = _lm_body(R, t, lam, X, U, fx, fy, cx, cy)
+    return R, t, err
+
+
+def lm_refine_plain(R0, t0, pts2d, pts3d, K, iterations=10):
+    """Plain PyTorch version of the LM kernel.
+
+    Args:
+      R0: [B, 3, 3] initial rotations; t0: [B, 3] initial translations;
+      pts2d: [B, N, 2] (x, y) pixels; pts3d: [B, N, 3]; K: [3, 3].
+    Returns: (R [B, 3, 3], t [B, 3], err [B]) after ``iterations`` LM steps.
+    """
+    B = pts2d.shape[0]
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    X = [pts3d[:, :, c] for c in range(3)]
+    U = [pts2d[:, :, 0], pts2d[:, :, 1]]
+    R = [[R0[:, i, j : j + 1] for j in range(3)] for i in range(3)]
+    t = [t0[:, i : i + 1] for i in range(3)]
+    R, t, err = _refine(R, t, X, U, fx, fy, cx, cy, iterations)
+    return torch.cat([R[i][j] for i in range(3) for j in range(3)], dim=1).view(B, 3, 3), torch.cat(t, dim=1), err[:, 0]
 
 
 # ----------------------------------------------------------------- kernel wrapper
@@ -340,10 +363,30 @@ def solve_pnp_plain(pts2d, pts3d, K, iterations=10):
 _MAX_POINTS = 32
 
 
-def _check(name, x, shape, device):
+def _check(fn, name, x, shape, device):
     if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous() or x.device != device:
-        raise ValueError(f"solve_pnp_kernel: `{name}` must be contiguous float32 {shape} on {device}, "
+        raise ValueError(f"{fn}: `{name}` must be contiguous float32 {shape} on {device}, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _check_problem(fn, pts2d, pts3d, K):
+    """Check the shared inputs; return (B, N, kparams [fx, fy, cx, cy], R, t, err outputs)."""
+    B, N, _ = pts2d.shape
+    if N > _MAX_POINTS:
+        raise ValueError(f"{fn}: at most {_MAX_POINTS} points per detection, got {N}")
+    dev = pts2d.device
+    _check(fn, "pts2d", pts2d, (B, N, 2), dev)
+    _check(fn, "pts3d", pts3d, (B, N, 3), dev)
+    _check(fn, "K", K, (3, 3), dev)
+    kparams = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).contiguous()
+    R = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    err = torch.empty((B,), dtype=torch.float32, device=dev)
+    return B, N, kparams, R, t, err
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
 
 
 def solve_pnp_kernel(pts2d, pts3d, K, iterations=10):
@@ -354,24 +397,13 @@ def solve_pnp_kernel(pts2d, pts3d, K, iterations=10):
     """
     if not pts2d.is_cuda:
         return solve_pnp_plain(pts2d, pts3d, K, iterations)
-    B, N, _ = pts2d.shape
-    if N > _MAX_POINTS:
-        raise ValueError(f"solve_pnp_kernel: at most {_MAX_POINTS} points per detection, got {N}")
-    dev = pts2d.device
-    _check("pts2d", pts2d, (B, N, 2), dev)
-    _check("pts3d", pts3d, (B, N, 3), dev)
-    _check("K", K, (3, 3), dev)
-    kparams = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).contiguous()
-    R = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
-    t = torch.empty((B, 3), dtype=torch.float32, device=dev)
-    err = torch.empty((B,), dtype=torch.float32, device=dev)
+    B, N, kparams, R, t, err = _check_problem("solve_pnp_kernel", pts2d, pts3d, K)
     if B == 0:
         return R, t, err
     lib = _build.load("pnp")
     rc = lib.solve_pnp(
-        ctypes.c_void_p(pts2d.data_ptr()), ctypes.c_void_p(pts3d.data_ptr()), ctypes.c_void_p(kparams.data_ptr()),
-        ctypes.c_void_p(R.data_ptr()), ctypes.c_void_p(t.data_ptr()), ctypes.c_void_p(err.data_ptr()),
-        B, N, iterations, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        _ptr(pts2d), _ptr(pts3d), _ptr(kparams), _ptr(R), _ptr(t), _ptr(err),
+        B, N, iterations, ctypes.c_void_p(torch.cuda.current_stream(pts2d.device).cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"solve_pnp kernel launch failed: CUDA error {rc}")
@@ -380,3 +412,29 @@ def solve_pnp_kernel(pts2d, pts3d, K, iterations=10):
 
 
 solve_pnp_kernel.launches = 0
+
+
+def lm_refine(R0, t0, pts2d, pts3d, K, iterations=10):
+    """LM refinement from (R0, t0): the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+
+    Args / returns as :func:`lm_refine_plain`.
+    """
+    if not pts2d.is_cuda:
+        return lm_refine_plain(R0, t0, pts2d, pts3d, K, iterations)
+    B, N, kparams, R, t, err = _check_problem("lm_refine", pts2d, pts3d, K)
+    _check("lm_refine", "R0", R0, (B, 3, 3), pts2d.device)
+    _check("lm_refine", "t0", t0, (B, 3), pts2d.device)
+    if B == 0:
+        return R, t, err
+    lib = _build.load("pnp")
+    rc = lib.lm_refine(
+        _ptr(R0), _ptr(t0), _ptr(pts2d), _ptr(pts3d), _ptr(kparams), _ptr(R), _ptr(t), _ptr(err),
+        B, N, iterations, ctypes.c_void_p(torch.cuda.current_stream(pts2d.device).cuda_stream),
+    )
+    if rc != 0:
+        raise RuntimeError(f"lm_refine kernel launch failed: CUDA error {rc}")
+    lm_refine.launches += 1
+    return R, t, err
+
+
+lm_refine.launches = 0

@@ -24,6 +24,7 @@ import torch
 
 from casapose_tpu_torch.core.numerics import divide_no_nan
 from casapose_tpu_torch.ops.connected_components import largest_component_mask
+from casapose_tpu_torch.ops.plain import is_plain
 from casapose_tpu_torch.ops.voting_kernel import voting_accumulate, voting_accumulate_plain
 
 
@@ -124,7 +125,6 @@ def ls_voting(
     min_component_size=50,
     cc_downsample=4,
     raw_output=None,
-    plain=False,
 ):
     """Weighted least-squares keypoint voting.
 
@@ -136,10 +136,9 @@ def ls_voting(
         least ``min_component_size`` px of each class mask.
       raw_output: optional [b, h, w, 1+oc+3k] raw network output
         ``[seg | dirs | conf]``. On CUDA (and without sigmoid weights) the
-        sums come from the voting kernel in one pass over it.
-      plain: with ``raw_output``, take the kernel's branch but compute the
-        sums with the kernel's plain PyTorch version, on any device. For
-        holding the kernel against its plain version.
+        sums come from the voting kernel in one pass over it; inside
+        ``ops/plain.py::plain_kernels("voting")`` from its plain version,
+        on any device.
     Returns:
       [b, oc, k, 2] voted keypoints, (y, x) pixels.
     """
@@ -148,6 +147,7 @@ def ls_voting(
     labels, hot = class_masks(
         seg, directions.dtype, filter_estimates, min_component_size, output_second_largest_component, cc_downsample
     )
+    plain = is_plain("voting")
     if raw_output is not None and not sigmoid_weights and (raw_output.is_cuda or plain):
         labels_f = filtered_labels(labels, hot)
         accumulate = voting_accumulate_plain if plain else voting_accumulate

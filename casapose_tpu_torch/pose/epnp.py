@@ -3,7 +3,8 @@
 Counterpart of ``casapose_tpu/pose/epnp.py::solve_pnp`` on its accelerator
 path: the whole solve (EPnP init + LM refine) is the PnP kernel
 (ops/pnp_kernel.py), which runs the CUDA kernel for CUDA tensors and its
-plain version for CPU tensors. Degenerate rows (all-zero 2D points, the
+plain version for CPU tensors (and on any device inside
+``ops/plain.py::plain_kernels("pnp")``). Degenerate rows (all-zero 2D points, the
 reference's "missing object" convention) are swapped for a consistent
 synthetic problem before the solve and come out as the placeholder pose
 [rvec = 0, t = (0, 0, 1)]; non-finite kernel results are spliced to the
@@ -14,6 +15,7 @@ path is not ported yet.
 import torch
 
 from casapose_tpu_torch.core.numerics import divide_no_nan
+from casapose_tpu_torch.ops.plain import is_plain
 from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel, solve_pnp_plain
 from casapose_tpu_torch.pose.geometry import rodrigues, rotation_to_rvec
 
@@ -36,22 +38,20 @@ def substitute_degenerate(pts2d, pts3d, K):
     return torch.where(degenerate[:, None, None], _project_placeholder(pts3d, K), pts2d), degenerate
 
 
-def solve_pnp(pts2d, pts3d, K, iterations=10, plain=False):
+def solve_pnp(pts2d, pts3d, K, iterations=10):
     """Full PnP per row.
 
     Args:
       pts2d: [B, N, 2] (x, y) pixels; all-(near-)zero rows give the placeholder pose.
       pts3d: [B, N, 3] model points.
       K: [3, 3] intrinsics.
-      plain: solve with the kernel's plain PyTorch version on any device
-        (for holding the kernel against it).
     Returns:
       p6d [B, 6] = [rvec | t].
     """
     dtype, dev = pts2d.dtype, pts2d.device
     placeholder = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype, device=dev)
     safe_pts2d, degenerate = substitute_degenerate(pts2d, pts3d, K)
-    solve = solve_pnp_plain if plain else solve_pnp_kernel
+    solve = solve_pnp_plain if is_plain("pnp") else solve_pnp_kernel
     R, t, _ = solve(safe_pts2d.contiguous(), pts3d.contiguous(), K.contiguous(), iterations)
     R = torch.where(torch.isfinite(R), R, torch.eye(3, dtype=dtype, device=dev))
     t = torch.where(torch.isfinite(t), t, placeholder[3:])

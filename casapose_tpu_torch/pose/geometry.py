@@ -1,11 +1,16 @@
-"""Rotation helpers on tensors: the device half of ``casapose_tpu/pose/geometry.py``.
+"""Geometric primitives: counterpart of ``casapose_tpu/pose/geometry.py``.
 
-``rodrigues`` (axis-angle -> matrix) and ``rotation_to_rvec`` (its log map),
-batched, with the JAX package's guards for theta ~ 0 and theta ~ pi.
+On tensors: ``rodrigues`` (axis-angle -> matrix) and ``rotation_to_rvec``
+(its log map), batched, with the JAX package's guards for theta ~ 0 and
+theta ~ pi; ``project_batch``; ``transform_points_back_batch``, which undoes
+the loader's crop / rotate / translate / scale on 2D points. On numpy, for
+the dataset: the 2D rotation matrix, the forward point map, quaternions and
+fixed model transforms, copied from the JAX package's host half.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from casapose_tpu_torch.core.numerics import divide_no_nan
@@ -51,3 +56,104 @@ def rotation_to_rvec(R):
     signs = torch.where(signs == 0, torch.ones_like(signs), signs)
     rvec_pi = axis * signs * theta[..., None]
     return torch.where(near_pi[..., None], rvec_pi, rvec_generic)
+
+
+def project_batch(xyz, K, RT):
+    """Project model points with one pose per batch element.
+
+    Args:
+      xyz: [B, N, 3] model-frame points.
+      K: [3, 3] shared intrinsics, or [B, 3, 3].
+      RT: [B, 3, 4] rigid transforms.
+    Returns:
+      (xy [B, N, 2] pixels, 0 where the depth is 0; xyz_cam [B, N, 3]).
+    """
+    xyz_cam = xyz @ RT[:, :, :3].transpose(1, 2) + RT[:, :, 3:].transpose(1, 2)
+    uvw = xyz_cam @ (K.T[None] if K.ndim == 2 else K.transpose(-1, -2))
+    return divide_no_nan(uvw[:, :, :2], uvw[:, :, 2:]), xyz_cam
+
+
+def transform_points_back_batch(points, h_crop, w_crop, sx, sy, dx, dy, angle, scale):
+    """Undo the loader's crop, rotation, translation and scale on 2D points.
+
+    Args:
+      points: [B, N, 2] (x, y) points in network-output pixels.
+      h_crop, w_crop, sx, sy, dx, dy, angle, scale: [B, 1] columns of the
+        offsets tensor ([h_crop, w_crop, out_h, out_w, dx, dy, angle, scale,
+        orig_w, orig_h]; sx = orig_w, sy = orig_h).
+    Returns: [B, N, 2] points in original-image pixels.
+    """
+    b, n = points.shape[0], points.shape[1]
+    pts = points / scale[..., None]
+    z = torch.zeros_like(dx)
+    o = torch.ones_like(dx)
+    tm = torch.stack([torch.cat([o, z, -dx], 1), torch.cat([z, o, -dy], 1), torch.cat([z, z, o], 1)], 1)
+    angle_rad = -angle * (math.pi / 180.0)
+    a = torch.cos(angle_rad)
+    bb = torch.sin(angle_rad)
+    cx = sx[:, 0] / 2.0
+    cy = sy[:, 0] / 2.0
+    c = ((1.0 - a[:, 0]) * cx - bb[:, 0] * cy)[:, None]
+    d = (bb[:, 0] * cx + (1.0 - a[:, 0]) * cy)[:, None]
+    rm = torch.stack([torch.cat([a, bb, c], 1), torch.cat([-bb, a, d], 1), torch.cat([z, z, o], 1)], 1)
+    pts = pts + torch.cat([w_crop, h_crop], 1)[:, None, :]
+    homo = torch.cat([pts.transpose(1, 2), torch.ones((b, 1, n), dtype=points.dtype, device=points.device)], 1)
+    return (rm @ (tm @ homo))[:, 0:2].transpose(1, 2)
+
+
+# ----------------------------------------------------------------- host (numpy), for the dataset
+
+
+def get_rotation_matrix_2D_np(center, angle):
+    """2x3 rotation about ``center`` (the reference's sign convention)."""
+    angle_rad = angle * (np.pi / 180.0)
+    a = np.cos(angle_rad)
+    b = np.sin(angle_rad)
+    c = (1 - a) * center[0] - b * center[1]
+    d = b * center[0] + (1 - a) * center[1]
+    return np.float32([[a, b, c], [-b, a, d]])
+
+
+def reproject_np(points, tm, rm, offset):
+    """Apply the 2x3 rotation ``rm``, then the translation ``tm``, then subtract the crop offset."""
+    pts = np.asarray(points, dtype=np.float64)
+    rmat = np.identity(3)
+    rmat[0:2] = rm
+    tmat = np.identity(3)
+    tmat[0:2] = tm
+    out = tmat @ (rmat @ np.vstack((pts.T, np.ones(len(pts)))))
+    return out[0:2].T - offset
+
+
+def transform_points_np(points, transform):
+    """Apply a 3x4 / 4x4 model transform to [N, 3] points."""
+    p = np.asarray(points, dtype=np.float64)
+    p = np.transpose(np.c_[p, np.ones(len(p))])
+    return np.transpose(np.matmul(transform, p))[:, 0:3]
+
+
+def quaternion_matrix_np(quaternion_xyzw, translation=None, wxyz_input=False):
+    """Quaternion (xyzw unless ``wxyz_input``) -> 3x3 rotation, or 3x4 [R | t] with ``translation``.
+
+    Near-zero quaternions give the identity.
+    """
+    q = np.array(quaternion_xyzw, dtype=np.float64, copy=True)
+    if not wxyz_input:
+        q = np.array([q[3], q[0], q[1], q[2]], dtype=np.float64)
+    n = np.dot(q, q)
+    if n < 0.0001:
+        R = np.identity(3)
+    else:
+        q *= math.sqrt(2.0 / n)
+        q = np.outer(q, q)
+        R = np.array(
+            [
+                [1.0 - q[2, 2] - q[3, 3], q[1, 2] - q[3, 0], q[1, 3] + q[2, 0]],
+                [q[1, 2] + q[3, 0], 1.0 - q[1, 1] - q[3, 3], q[2, 3] - q[1, 0]],
+                [q[1, 3] - q[2, 0], q[2, 3] + q[1, 0], 1.0 - q[1, 1] - q[2, 2]],
+            ]
+        )
+    if translation is None:
+        return R
+    t = np.array(translation, dtype=np.float64, copy=True).reshape(3, 1)
+    return np.concatenate([R, t], axis=1)

@@ -22,6 +22,10 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "casapose_tpu") and sys.modules[m] is not None)
 assert not leaked, leaked
+eval_slice = {"casapose_tpu_torch." + m for m in (
+    "eval", "core.checkpoint", "data.mesh", "data.ndds", "data.pipeline", "losses.losses", "ops.vectorfield",
+    "pose.bpnp", "pose.metrics", "utils.config", "utils.io")}
+assert eval_slice <= set(names), sorted(eval_slice - set(names))
 print(len(names))
 """
 
@@ -29,8 +33,12 @@ _ENTRY_POINTS_REFUSE = r"""
 import torch
 assert not torch.cuda.is_available()
 from casapose_tpu_torch.entry import build_inference_step
+from casapose_tpu_torch.eval import main, run_evaluation
 from casapose_tpu_torch.models.registry import get_model
-for call in (lambda: build_inference_step(), lambda: get_model("casapose_c_gcu5", 27, 9)):
+from casapose_tpu_torch.utils.config import parse_config
+opt = parse_config(["--estimate_confidence", "1", "--estimate_coords", "1", "--object", "obj_000001"])
+for call in (lambda: build_inference_step(), lambda: get_model("casapose_c_gcu5", 27, 9), lambda: run_evaluation(opt),
+             lambda: main(["--estimate_confidence", "1", "--estimate_coords", "1", "--object", "obj_000001"])):
     try:
         call()
     except RuntimeError as e:
@@ -49,7 +57,7 @@ def _run(code):
 def test_every_module_imports_without_jax_or_the_jax_package():
     proc = _run(_POISONED_IMPORT)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15  # every module of the slice was walked
+    assert int(proc.stdout.split()[-1]) >= 29  # every module of both slices was walked
 
 
 def test_entry_points_raise_without_cuda():

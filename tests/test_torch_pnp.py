@@ -65,6 +65,47 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version(planted):
     assert solve_pnp_kernel.launches == 0
 
 
+@pytest.mark.parametrize("kernel", ["voting", "pnp"])
+def test_plain_kernels_routes_only_the_named_call_site(kernel, planted, monkeypatch):
+    """Inside ``plain_kernels(name)`` the call site of ``name`` calls its plain version instead of its kernel
+    wrapper (voting: on the kernel's branch, from the raw output), the other call site is unchanged; on leaving,
+    both are as before. An unknown name raises."""
+    import torch
+
+    import casapose_tpu_torch.ops.voting as voting
+    import casapose_tpu_torch.pose.epnp as epnp
+    from casapose_tpu_torch.ops.plain import is_plain, plain_kernels
+
+    called = []
+
+    def wrapper(name, fn):
+        return lambda *a, **k: called.append(name) or fn(*a, **k)
+
+    monkeypatch.setattr(epnp, "solve_pnp_kernel", wrapper("pnp", epnp.solve_pnp_kernel))
+    monkeypatch.setattr(epnp, "solve_pnp_plain", wrapper("pnp plain", epnp.solve_pnp_plain))
+    monkeypatch.setattr(voting, "voting_accumulate", wrapper("voting", voting.voting_accumulate))
+    monkeypatch.setattr(voting, "voting_accumulate_plain", wrapper("voting plain", voting.voting_accumulate_plain))
+    p2, p3 = (torch.from_numpy(a) for a in planted[:2])
+    K = torch.from_numpy(CAMERA)
+    rng = np.random.default_rng(2)
+    raw = torch.from_numpy(rng.normal(size=(1, 16, 20, 3 + 27)).astype(np.float32))
+
+    def run():
+        called.clear()
+        epnp.solve_pnp(p2, p3, K)
+        voting.ls_voting(raw[..., :3], raw[..., 3:21], raw[..., 21:], num_points=9, raw_output=raw)
+        return list(called)
+
+    assert run() == ["pnp"]  # a CPU tensor: the voting call site takes the einsum branch, not the kernel's
+    with plain_kernels(kernel):
+        assert is_plain(kernel) and not is_plain({"voting": "pnp", "pnp": "voting"}[kernel])
+        assert run() == (["pnp plain"] if kernel == "pnp" else ["pnp", "voting plain"])
+    assert not is_plain(kernel) and run() == ["pnp"]
+    with pytest.raises(ValueError):
+        with plain_kernels("lm_refine"):
+            pass
+
+
 def test_kernel_math_compiled_for_the_host_matches_pallas(planted, tmp_path_factory):
     """csrc/pnp_math.cuh is __host__ __device__: the host build checks the CUDA kernel's arithmetic here."""
     cxx = shutil.which("g++") or shutil.which("c++")

@@ -115,6 +115,7 @@ def test_ls_voting_matches_jax(filt, branch):
 
     from casapose_tpu.ops.voting import ls_voting as jax_ls_voting
 
+    from casapose_tpu_torch.ops.plain import plain_kernels
     from casapose_tpu_torch.ops.voting import ls_voting
 
     seg, dirs, conf, raw = _voting_inputs(seed=3)
@@ -123,7 +124,8 @@ def test_ls_voting_matches_jax(filt, branch):
     if branch == "einsum":
         got = ls_voting(*args, num_points=9, filter_estimates=filt)
     else:
-        got = ls_voting(*args, num_points=9, filter_estimates=filt, raw_output=torch.from_numpy(raw), plain=True)
+        with plain_kernels("voting"):  # the kernel's branch (sums from the raw output) on the CPU
+            got = ls_voting(*args, num_points=9, filter_estimates=filt, raw_output=torch.from_numpy(raw))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=5e-3)
 
 

@@ -4,7 +4,10 @@ Inputs are made with numpy from a seed and handed to both packages; JAX
 weights are carried across with ``from_jax_variables``.
 """
 
+import contextlib
+
 import numpy as np
+import pytest
 
 CAMERA = np.array([[572.4, 0.0, 32.0], [0.0, 573.5, 24.0], [0.0, 0.0, 1.0]], np.float32)
 
@@ -56,21 +59,23 @@ def planted_pnp(B, N=9, seed=0, K=CAMERA):
     return (uvw[..., :2] / uvw[..., 2:]).astype(np.float32), pts3d, R, t
 
 
-def jax_poses_pnp_accelerator_path(coords, seg, kp3, cam, no_objects):
-    """The JAX ``poses_pnp`` down the branch it takes on an accelerator.
+@contextlib.contextmanager
+def jax_pnp_accelerator_branch():
+    """Run the JAX ``solve_pnp`` down the branch it takes on an accelerator.
 
     There ``solve_pnp`` hands the whole solve to the fused Pallas PnP kernel
     (casapose_tpu/pose/epnp.py:453-460), whose algorithm the port's PnP
-    kernel follows; on the CPU it takes its XLA algorithm instead. The
-    backend check is answered "tpu" and the kernel runs in interpret mode,
-    as tests/test_pnp_kernel.py runs it. ``solve_pnp`` is called untraced,
-    so the check runs on this call.
+    kernel follows; on the CPU it takes its XLA algorithm instead. Inside
+    this context the backend check is answered "tpu" and the kernel runs in
+    interpret mode, as tests/test_pnp_kernel.py runs it. The jitted
+    ``solve_pnp`` is swapped for its untraced function wherever a module has
+    bound it (``pose/evaluation.py``, ``pose/bpnp.py``), so that the check
+    runs on each call or trace. Yields the list of kernel calls made.
     """
     import jax
-    import pytest
 
     from casapose_tpu.ops import pnp_kernel
-    from casapose_tpu.pose import epnp, evaluation
+    from casapose_tpu.pose import bpnp, epnp, evaluation
 
     calls = []
     kernel = pnp_kernel.solve_pnp_pallas
@@ -82,7 +87,16 @@ def jax_poses_pnp_accelerator_path(coords, seg, kp3, cam, no_objects):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax, "default_backend", lambda: "tpu")
         mp.setattr(pnp_kernel, "solve_pnp_pallas", interpreted)
-        mp.setattr(evaluation, "solve_pnp", epnp.solve_pnp.__wrapped__)
+        for module in (evaluation, bpnp):
+            mp.setattr(module, "solve_pnp", epnp.solve_pnp.__wrapped__)
+        yield calls
+
+
+def jax_poses_pnp_accelerator_path(coords, seg, kp3, cam, no_objects):
+    """The JAX ``poses_pnp`` with its PnP down the accelerator branch (see :func:`jax_pnp_accelerator_branch`)."""
+    from casapose_tpu.pose import evaluation
+
+    with jax_pnp_accelerator_branch() as calls:
         poses = np.asarray(evaluation.poses_pnp(coords, seg, kp3, cam, no_objects))
     assert calls, "the JAX solve_pnp did not take its Pallas branch"
     return poses
