@@ -1,11 +1,26 @@
-// Per-detection PnP math: EPnP init + Levenberg-Marquardt refine, one problem
-// in scalar registers / local arrays. __host__ __device__, so the same source
-// compiles for the card (pnp.cu) and with a host C++ compiler.
+// PnP math in warp form: EPnP init + Levenberg-Marquardt refine of one
+// detection, spread over the lanes of a warp. __host__ __device__, so the
+// same source compiles for the card (pnp.cu) and with a host C++ compiler
+// (pnp_host.cpp).
 //
 // Step for step this is casapose_tpu/ops/pnp_kernel.py's _full_pnp_kernel
 // (_epnp_candidates_grid, _lm_body, _chol_solve6, _exp_so3_grid, winner
 // pick) and casapose_tpu_torch/ops/pnp_kernel.py::solve_pnp_plain, with each
 // [B, 1] entry of the TPU grid form become one float.
+//
+// Lanes. Every sum over the points is taken by lane_sums<W>: lane l of a
+// group of W lanes adds the terms of points l, l + W, ... and a butterfly of
+// __shfl_xor_sync (offsets W/2 .. 1) adds the lanes, so every lane ends with
+// the sum. On the host, lane_sums loops over the W virtual lanes and runs
+// the same butterfly, so the host build adds in the card's order. Everything
+// else is computed by every lane of the group at once, from values that all
+// its lanes hold (no shared memory, no broadcast): the 12x12 Cholesky
+// factor, the inverse-iteration solves, the Horn power steps, the 6x6 LM
+// solve. EPnP runs on the whole warp (W = 32); the two candidates' pose fits
+// and LM chains run at once on its two halves (W = 16); on the host they run
+// one after the other. The triangular solves multiply by the reciprocals of
+// the factor's diagonal, which cuts a division out of each step of their
+// serial chains.
 #pragma once
 
 #include <math.h>
@@ -19,6 +34,8 @@
 namespace cpnp {
 
 constexpr int kMaxPoints = 32;
+constexpr int kWarp = 32;
+constexpr int kHalf = 16;
 
 struct Problem {
   int n;
@@ -33,46 +50,94 @@ CP_HD float nan_min(float a, float b) { return (a != a || b != b) ? (a + b) : (a
 CP_HD float clamp_min(float x, float lo) { return x < lo ? lo : x; }
 CP_HD bool finite_(float x) { return isfinite(x); }
 
-// Cholesky factor (row-major n x n, lower part used), diagonal floored at 1e-30.
-template <int N>
-CP_HD void chol_factor(const float* A, float* L) {
+// out[s] = sum over points i < n of f(i)[s], s < NS, in the order of W lanes and their butterfly.
+template <int W, int NS, class F>
+CP_HD void lane_sums(int n, const F& f, float* out) {
+  float t[NS];
+#ifdef __CUDA_ARCH__
+  const int l = threadIdx.x & (W - 1);
+  float v[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) v[s] = 0.0f;
+  for (int i = l; i < n; i += W) {
+    f(i, t);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) v[s] += t[s];
+  }
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) v[s] += __shfl_xor_sync(0xffffffffu, v[s], off, W);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) out[s] = v[s];
+#else
+  float v[W][NS], nv[W][NS];
+  for (int l = 0; l < W; ++l) {
+    for (int s = 0; s < NS; ++s) v[l][s] = 0.0f;
+    for (int i = l; i < n; i += W) {
+      f(i, t);
+      for (int s = 0; s < NS; ++s) v[l][s] += t[s];
+    }
+  }
+  for (int off = W / 2; off > 0; off >>= 1) {
+    for (int l = 0; l < W; ++l)
+      for (int s = 0; s < NS; ++s) nv[l][s] = v[l][s] + v[l ^ off][s];
+    for (int l = 0; l < W; ++l)
+      for (int s = 0; s < NS; ++s) v[l][s] = nv[l][s];
+  }
+  for (int s = 0; s < NS; ++s) out[s] = v[0][s];
+#endif
+}
+
+// Packed lower triangle: entry (i, j), j <= i.
+CP_HD constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
+
+// Cholesky factor of the N x N matrix a(i, j) (lower part used) into packed L, with inv[i] = 1 / L(i, i);
+// diagonal floored at 1e-30 before the sqrt.
+template <int N, class A>
+CP_HD void chol_factor(const A& a, float* L, float* inv) {
+#pragma unroll
   for (int i = 0; i < N; ++i)
+#pragma unroll
     for (int j = 0; j <= i; ++j) {
-      float s = A[i * N + j];
-      for (int k = 0; k < j; ++k) s = s - L[i * N + k] * L[j * N + k];
-      L[i * N + j] = (i == j) ? sqrtf(clamp_min(s, 1e-30f)) : s / L[j * N + j];
+      float s = a(i, j);
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - L[tri(i, k)] * L[tri(j, k)];
+      if (i == j) {
+        L[tri(i, i)] = sqrtf(clamp_min(s, 1e-30f));
+        inv[i] = 1.0f / L[tri(i, i)];
+      } else {
+        L[tri(i, j)] = s * inv[j];
+      }
     }
 }
 
+// Solve L L^T x = b with the packed factor and its diagonal's reciprocals.
 template <int N>
-CP_HD void chol_solve(const float* L, const float* b, float* x) {
+CP_HD void chol_solve(const float* L, const float* inv, const float* b, float* x) {
   float y[N];
+#pragma unroll
   for (int i = 0; i < N; ++i) {
     float s = b[i];
-    for (int k = 0; k < i; ++k) s = s - L[i * N + k] * y[k];
-    y[i] = s / L[i * N + i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - L[tri(i, k)] * y[k];
+    y[i] = s * inv[i];
   }
+#pragma unroll
   for (int i = N - 1; i >= 0; --i) {
     float s = y[i];
-    for (int k = i + 1; k < N; ++k) s = s - L[k * N + i] * x[k];
-    x[i] = s / L[i * N + i];
+#pragma unroll
+    for (int k = i + 1; k < N; ++k) s = s - L[tri(k, i)] * x[k];
+    x[i] = s * inv[i];
   }
 }
 
 template <int N>
 CP_HD float dot(const float* a, const float* b) {
   float s = 0.0f;
+#pragma unroll
   for (int i = 0; i < N; ++i) s = s + a[i] * b[i];
   return s;
-}
-
-template <int N>
-CP_HD void matvec(const float* A, const float* v, float* out) {
-  for (int i = 0; i < N; ++i) {
-    float s = 0.0f;
-    for (int j = 0; j < N; ++j) s = s + A[i * N + j] * v[j];
-    out[i] = s;
-  }
 }
 
 // Rodrigues exp map: I + a K + b (w w^T - |w|^2 I).
@@ -84,71 +149,104 @@ CP_HD void exp_so3(float wx, float wy, float wz, float* out) {
   const float b = small ? 0.5f - theta2 / 24.0f : (1.0f - cosf(theta)) / clamp_min(theta2, 1e-30f);
   const float w[3] = {wx, wy, wz};
   const float K[9] = {0.0f, -wz, wy, wz, 0.0f, -wx, -wy, wx, 0.0f};
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j)
       out[i * 3 + j] = (i == j ? 1.0f : 0.0f) + a * K[i * 3 + j] + b * (w[i] * w[j] - (i == j ? theta2 : 0.0f));
 }
 
-// Sum of squared reprojection residuals of (R, t); fills ru, rv, Xc, zs when given.
-CP_HD float residuals(const Problem& P, const float* R, const float* t, float* ru, float* rv, float (*Xc)[kMaxPoints],
-                      float* zs) {
-  float err = 0.0f;
-  for (int i = 0; i < P.n; ++i) {
-    float xc[3];
-    for (int r = 0; r < 3; ++r) xc[r] = R[r * 3 + 0] * P.X[0][i] + R[r * 3 + 1] * P.X[1][i] + R[r * 3 + 2] * P.X[2][i] + t[r];
-    const float z = fabsf(xc[2]) < 1e-9f ? 1e-9f : xc[2];
-    const float u = P.fx * xc[0] / z + P.cx - P.U[0][i];
-    const float v = P.fy * xc[1] / z + P.cy - P.U[1][i];
-    err = err + (u * u + v * v);
-    if (ru) {
-      ru[i] = u;
-      rv[i] = v;
-      zs[i] = z;
-      for (int r = 0; r < 3; ++r) Xc[r][i] = xc[r];
-    }
-  }
-  return err;
+// Reprojection of point i under (R, t): camera point xc, guarded depth z, pixel residuals (u, v).
+CP_HD void point_residual(const Problem& P, const float* R, const float* t, int i, float* xc, float& z, float& u,
+                          float& v) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) xc[r] = R[r * 3 + 0] * P.X[0][i] + R[r * 3 + 1] * P.X[1][i] + R[r * 3 + 2] * P.X[2][i] + t[r];
+  z = fabsf(xc[2]) < 1e-9f ? 1e-9f : xc[2];
+  u = P.fx * xc[0] / z + P.cx - P.U[0][i];
+  v = P.fy * xc[1] / z + P.cy - P.U[1][i];
 }
 
-// One LM iteration on (R, t, lam); returns min(err at the start, err of the trial step).
-CP_HD float lm_body(const Problem& P, float* R, float* t, float& lam) {
-  float ru[kMaxPoints], rv[kMaxPoints], zs[kMaxPoints], Xc[3][kMaxPoints];
-  const float err = residuals(P, R, t, ru, rv, Xc, zs);
-  float H[36], g[6];
-  for (int i = 0; i < 36; ++i) H[i] = 0.0f;
-  for (int i = 0; i < 6; ++i) g[i] = 0.0f;
-  for (int n = 0; n < P.n; ++n) {
-    const float iz = 1.0f / zs[n];
+// A point's terms of the LM sums: J^T J (upper, row by row: 21), J^T r (6), |r|^2.
+struct LmTerms {
+  const Problem& P;
+  const float* R;
+  const float* t;
+  CP_HD void operator()(int i, float* o) const {
+    float xc[3], z, u, v;
+    point_residual(P, R, t, i, xc, z, u, v);
+    const float iz = 1.0f / z;
     const float du0 = P.fx * iz;
-    const float du2 = -P.fx * Xc[0][n] * iz * iz;
+    const float du2 = -P.fx * xc[0] * iz * iz;
     const float dv1 = P.fy * iz;
-    const float dv2 = -P.fy * Xc[1][n] * iz * iz;
-    const float px = Xc[0][n] - t[0];
-    const float py = Xc[1][n] - t[1];
-    const float pz = Xc[2][n] - t[2];
+    const float dv2 = -P.fy * xc[1] * iz * iz;
+    const float px = xc[0] - t[0];
+    const float py = xc[1] - t[1];
+    const float pz = xc[2] - t[2];
     const float Ju[6] = {du2 * py, du0 * pz - du2 * px, -du0 * py, du0, 0.0f, du2};
     const float Jv[6] = {-dv1 * pz + dv2 * py, -dv2 * px, dv1 * px, 0.0f, dv1, dv2};
-    for (int i = 0; i < 6; ++i) {
-      for (int j = i; j < 6; ++j) H[i * 6 + j] += Ju[i] * Ju[j] + Jv[i] * Jv[j];
-      g[i] += Ju[i] * ru[n] + Jv[i] * rv[n];
-    }
+    int s = 0;
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+#pragma unroll
+      for (int b = a; b < 6; ++b) o[s++] = Ju[a] * Ju[b] + Jv[a] * Jv[b];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) o[21 + a] = Ju[a] * u + Jv[a] * v;
+    o[27] = u * u + v * v;
   }
+};
+
+struct ErrTerm {
+  const Problem& P;
+  const float* R;
+  const float* t;
+  CP_HD void operator()(int i, float* o) const {
+    float xc[3], z, u, v;
+    point_residual(P, R, t, i, xc, z, u, v);
+    o[0] = u * u + v * v;
+  }
+};
+
+struct HessAt {
+  const float* H;
+  CP_HD float operator()(int i, int j) const { return H[i * 6 + j]; }
+};
+
+// One LM iteration on (R, t, lam) by the W lanes of a group; returns min(err at the start, err of the trial step).
+template <int W>
+CP_HD float lm_body(const Problem& P, float* R, float* t, float& lam) {
+  float S[28];
+  lane_sums<W, 28>(P.n, LmTerms{P, R, t}, S);
+  const float err = S[27];
+  float H[36], g[6];
+  int s = 0;
+#pragma unroll
   for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < i; ++j) H[i * 6 + j] = H[j * 6 + i];
+#pragma unroll
+    for (int j = i; j < 6; ++j) H[i * 6 + j] = H[j * 6 + i] = S[s++];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) g[i] = S[21 + i];
+#pragma unroll
   for (int i = 0; i < 6; ++i) H[i * 6 + i] = H[i * 6 + i] + lam * (1.0f + H[i * 6 + i]);
-  float L[36], delta[6];
-  chol_factor<6>(H, L);
-  chol_solve<6>(L, g, delta);
+  float L[21], inv[6], delta[6];
+  chol_factor<6>(HessAt{H}, L, inv);
+  chol_solve<6>(L, inv, g, delta);
+#pragma unroll
   for (int i = 0; i < 6; ++i) delta[i] = finite_(delta[i]) ? delta[i] : 0.0f;
   float dR[9], R_new[9], t_new[3];
   exp_so3(-delta[0], -delta[1], -delta[2], dR);
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j) R_new[i * 3 + j] = dR[i * 3 + 0] * R[0 * 3 + j] + dR[i * 3 + 1] * R[1 * 3 + j] + dR[i * 3 + 2] * R[2 * 3 + j];
+#pragma unroll
   for (int i = 0; i < 3; ++i) t_new[i] = t[i] - delta[3 + i];
-  const float err_new = residuals(P, R_new, t_new, nullptr, nullptr, nullptr, nullptr);
+  float err_new;
+  lane_sums<W, 1>(P.n, ErrTerm{P, R_new, t_new}, &err_new);
   const bool accept = finite_(err_new) && (err_new < err);
   if (accept) {
+#pragma unroll
     for (int i = 0; i < 9; ++i) R[i] = R_new[i];
+#pragma unroll
     for (int i = 0; i < 3; ++i) t[i] = t_new[i];
     lam = clamp_min(lam / 3.0f, 1e-12f);
   } else {
@@ -158,16 +256,173 @@ CP_HD float lm_body(const Problem& P, float* R, float* t, float& lam) {
   return nan_min(err, err_new);
 }
 
-// Camera control points vk (12) -> pose by pairwise scale fit and Horn's quaternion Procrustes.
-CP_HD void pose_from_null(const Problem& P, const float (*alpha)[kMaxPoints], const float (*ctrl_w)[3], const float* vk,
-                          float* R, float* t) {
-  float num = 0.0f, den = 0.0f;
+// LM refinement alone from (R, t), in place, on a half-warp: lambda starts at 1e-4 and err at 0, as
+// casapose_tpu/ops/pnp_kernel.py's _lm_kernel; returns err of the last iteration.
+CP_HD float lm_refine(const Problem& P, int iterations, float* R, float* t) {
+  float lam = 1e-4f, err = 0.0f;
+  for (int it = 0; it < iterations; ++it) err = lm_body<kHalf>(P, R, t, lam);
+  return err;
+}
+
+// Normalisation of the model points: means c0 and the floored standard deviations s per coordinate.
+struct CoordTerms {
+  const Problem& P;
+  CP_HD void operator()(int i, float* o) const {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) o[k] = P.X[k][i];
+  }
+};
+struct SpreadTerms {
+  const Problem& P;
+  const float* c0;
+  CP_HD void operator()(int i, float* o) const {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float d = P.X[k][i] - c0[k];
+      o[k] = d * d;
+    }
+  }
+};
+
+// Barycentric coordinates of point i with respect to the control points c0, c0 + s_k e_k.
+CP_HD void barycentric(const Problem& P, const float* c0, const float* s, int i, float* alpha) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) alpha[1 + k] = (P.X[k][i] - c0[k]) / s[k];
+  alpha[0] = 1.0f - alpha[1] - alpha[2] - alpha[3];
+}
+
+// A point's terms of M^T M's closed-form sums: for the 10 pairs a <= b, ab * [1, u, v, u^2 + v^2].
+struct MTerms {
+  const Problem& P;
+  const float* c0;
+  const float* s;
+  CP_HD void operator()(int i, float* o) const {
+    float alpha[4];
+    barycentric(P, c0, s, i, alpha);
+    const float u = (P.U[0][i] - P.cx) / P.fx;
+    const float v = (P.U[1][i] - P.cy) / P.fy;
+    int e = 0;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = a; b < 4; ++b) {
+        const float ab = alpha[a] * alpha[b];
+        o[e++] = ab;
+        o[e++] = ab * u;
+        o[e++] = ab * v;
+        o[e++] = ab * (u * u + v * v);
+      }
+  }
+};
+
+// Entry (r, c) of the 12x12 M^T M from the 40 sums (4 per pair a <= b: S, SU, SV, SQ).
+CP_HD float m_entry(const float* S40, int r, int c) {
+  const int a = r / 3, ra = r % 3, b = c / 3, rb = c % 3;
+  const int lo = a < b ? a : b, hi = a < b ? b : a;
+  const float* S = S40 + 4 * (lo * 4 - (lo * (lo - 1)) / 2 + (hi - lo));
+  if (ra == rb && ra < 2) return S[0];
+  if ((ra == 0 && rb == 2) || (ra == 2 && rb == 0)) return -S[1];
+  if ((ra == 1 && rb == 2) || (ra == 2 && rb == 1)) return -S[2];
+  if (ra == 2 && rb == 2) return S[3];
+  return 0.0f;
+}
+
+struct RidgedM {
+  const float* S40;
+  float ridge;
+  CP_HD float operator()(int i, int j) const { return i == j ? m_entry(S40, i, i) + ridge : m_entry(S40, i, j); }
+};
+
+CP_HD void m_matvec(const float* S40, const float* v, float* out) {
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) s = s + m_entry(S40, i, j) * v[j];
+    out[i] = s;
+  }
+}
+
+// The camera points of point i for scaled control points chat, times flip.
+CP_HD void camera_point(const Problem& P, const float* c0, const float* s, const float* chat, float flip, int i,
+                        float* pc) {
+  float alpha[4];
+  barycentric(P, c0, s, i, alpha);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc = acc + alpha[a] * chat[3 * a + k];
+    pc[k] = acc * flip;
+  }
+}
+
+struct DepthTerm {
+  const Problem& P;
+  const float* c0;
+  const float* s;
+  const float* chat;
+  CP_HD void operator()(int i, float* o) const {
+    float pc[3];
+    camera_point(P, c0, s, chat, 1.0f, i, pc);
+    o[0] = pc[2];
+  }
+};
+struct CentroidTerms {
+  const Problem& P;
+  const float* c0;
+  const float* s;
+  const float* chat;
+  float flip;
+  CP_HD void operator()(int i, float* o) const {
+    float pc[3];
+    camera_point(P, c0, s, chat, flip, i, pc);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      o[k] = P.X[k][i];
+      o[3 + k] = pc[k];
+    }
+  }
+};
+struct CrossTerms {
+  const Problem& P;
+  const float* c0;
+  const float* s;
+  const float* chat;
+  float flip;
+  const float* xb;
+  const float* pb;
+  CP_HD void operator()(int i, float* o) const {
+    float pc[3];
+    camera_point(P, c0, s, chat, flip, i, pc);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) o[3 * a + b] = (P.X[a][i] - xb[a]) * (pc[b] - pb[b]);
+  }
+};
+
+// Control points in the camera frame vk (12) -> pose (R, t) by pairwise scale fit and Horn's quaternion
+// Procrustes, on a group of W lanes.
+template <int W>
+CP_HD void pose_from_null(const Problem& P, const float* c0, const float* s, const float* vk, float* R, float* t) {
+  float ctrl_w[4][3];
+#pragma unroll
   for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) ctrl_w[a][k] = c0[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) ctrl_w[1 + k][k] = c0[k] + s[k];
+  float num = 0.0f, den = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
     for (int b = a + 1; b < 4; ++b) {
       float dc[3], dw[3];
-      for (int c = 0; c < 3; ++c) {
-        dc[c] = vk[3 * a + c] - vk[3 * b + c];
-        dw[c] = ctrl_w[a][c] - ctrl_w[b][c];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        dc[k] = vk[3 * a + k] - vk[3 * b + k];
+        dw[k] = ctrl_w[a][k] - ctrl_w[b][k];
       }
       const float ndc = sqrtf(clamp_min(dot<3>(dc, dc), 1e-30f));
       const float ndw = sqrtf(clamp_min(dot<3>(dw, dw), 1e-30f));
@@ -176,56 +431,44 @@ CP_HD void pose_from_null(const Problem& P, const float (*alpha)[kMaxPoints], co
     }
   const float beta = num / clamp_min(den, 1e-30f);
   float chat[12];
+#pragma unroll
   for (int i = 0; i < 12; ++i) chat[i] = vk[i] * beta;
-  const int n = P.n;
-  const float fn = (float)n;
-  float pc[3][kMaxPoints];
-  float mean_z = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    for (int c = 0; c < 3; ++c) {
-      float s = 0.0f;
-      for (int a = 0; a < 4; ++a) s = s + alpha[a][i] * chat[3 * a + c];
-      pc[c][i] = s;
-    }
-    mean_z += pc[2][i];
-  }
+  const float fn = (float)P.n;
+  float mean_z;
+  lane_sums<W, 1>(P.n, DepthTerm{P, c0, s, chat}, &mean_z);
   const float flip = (mean_z / fn) < 0.0f ? -1.0f : 1.0f;
-  float xb[3], pb[3];
-  for (int c = 0; c < 3; ++c) {
-    float sx = 0.0f, sp = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      pc[c][i] = pc[c][i] * flip;
-      sx += P.X[c][i];
-      sp += pc[c][i];
-    }
-    xb[c] = sx / fn;
-    pb[c] = sp / fn;
+  float cent[6], xb[3], pb[3];
+  lane_sums<W, 6>(P.n, CentroidTerms{P, c0, s, chat, flip}, cent);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    xb[k] = cent[k] / fn;
+    pb[k] = cent[3 + k] / fn;
   }
-  float S3[3][3];
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      float s = 0.0f;
-      for (int p = 0; p < n; ++p) s += (P.X[i][p] - xb[i]) * (pc[j][p] - pb[j]);
-      S3[i][j] = s;
-    }
-  const float Sxx = S3[0][0], Sxy = S3[0][1], Sxz = S3[0][2];
-  const float Syx = S3[1][0], Syy = S3[1][1], Syz = S3[1][2];
-  const float Szx = S3[2][0], Szy = S3[2][1], Szz = S3[2][2];
+  float S3[9];
+  lane_sums<W, 9>(P.n, CrossTerms{P, c0, s, chat, flip, xb, pb}, S3);
+  const float Sxx = S3[0], Sxy = S3[1], Sxz = S3[2];
+  const float Syx = S3[3], Syy = S3[4], Syz = S3[5];
+  const float Szx = S3[6], Szy = S3[7], Szz = S3[8];
   float Ns[16] = {Sxx + Syy + Szz, Syz - Szy,        Szx - Sxz,         Sxy - Syx,
                   Syz - Szy,       Sxx - Syy - Szz,  Sxy + Syx,         Szx + Sxz,
                   Szx - Sxz,       Sxy + Syx,        -Sxx + Syy - Szz,  Syz + Szy,
                   Sxy - Syx,       Szx + Sxz,        Syz + Szy,         -Sxx - Syy + Szz};
   float shift = 0.0f;
+#pragma unroll
   for (int i = 0; i < 4; ++i) {
     float row = 0.0f;
+#pragma unroll
     for (int j = 0; j < 4; ++j) row = row + fabsf(Ns[i * 4 + j]);
     shift = (i == 0) ? row : nan_max(shift, row);
   }
+#pragma unroll
   for (int i = 0; i < 4; ++i) Ns[i * 4 + i] = Ns[i * 4 + i] + shift;
   float q[4] = {0.5f, 0.5f, 0.5f, 0.5f}, q2[4];
   for (int it = 0; it < 30; ++it) {
-    matvec<4>(Ns, q, q2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q2[i] = dot<4>(Ns + 4 * i, q);
     const float nq = sqrtf(clamp_min(dot<4>(q2, q2), 1e-30f));
+#pragma unroll
     for (int i = 0; i < 4; ++i) q[i] = q2[i] / nq;
   }
   const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
@@ -238,98 +481,65 @@ CP_HD void pose_from_null(const Problem& P, const float (*alpha)[kMaxPoints], co
   R[6] = 2 * (qx * qz - qy * qw);
   R[7] = 2 * (qy * qz + qx * qw);
   R[8] = 1 - 2 * (qx * qx + qy * qy);
+#pragma unroll
   for (int i = 0; i < 3; ++i) t[i] = pb[i] - (R[i * 3 + 0] * xb[0] + R[i * 3 + 1] * xb[1] + R[i * 3 + 2] * xb[2]);
 }
 
-// EPnP beta-1 and beta-2 candidates in normalised camera coordinates.
-CP_HD void epnp_candidates(const Problem& P, float* R1, float* t1, float* R2, float* t2) {
+// EPnP on the warp: the control-point normalisation (c0, s) and the beta-1 and beta-2 null vectors vk[0], vk[1]
+// in normalised camera coordinates.
+CP_HD void epnp_null_vectors(const Problem& P, float* c0, float* s, float (*vk)[12]) {
   const int n = P.n;
   const float fn = (float)n;
-  float c0[3], s[3], std_[3];
-  float alpha[4][kMaxPoints];
-  for (int c = 0; c < 3; ++c) {
-    float m = 0.0f;
-    for (int i = 0; i < n; ++i) m += P.X[c][i];
-    c0[c] = m / fn;
-    float v = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const float d = P.X[c][i] - c0[c];
-      v += d * d;
-    }
-    std_[c] = sqrtf(clamp_min(v / fn, 1e-30f));
-  }
+  float sums[3], std_[3];
+  lane_sums<kWarp, 3>(n, CoordTerms{P}, sums);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c0[k] = sums[k] / fn;
+  lane_sums<kWarp, 3>(n, SpreadTerms{P, c0}, sums);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) std_[k] = sqrtf(clamp_min(sums[k] / fn, 1e-30f));
   const float mx = nan_max(nan_max(std_[0], std_[1]), std_[2]);
   const float floor_ = 1e-3f * clamp_min(mx, 1e-9f);
-  for (int c = 0; c < 3; ++c) s[c] = nan_max(std_[c], floor_);
-  for (int i = 0; i < n; ++i) {
-    for (int c = 0; c < 3; ++c) alpha[1 + c][i] = (P.X[c][i] - c0[c]) / s[c];
-    alpha[0][i] = 1.0f - alpha[1][i] - alpha[2][i] - alpha[3][i];
-  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s[k] = nan_max(std_[k], floor_);
 
   // M^T M from closed-form reductions.
-  float S[4][4], SU[4][4], SV[4][4], SQ[4][4];
-  for (int a = 0; a < 4; ++a)
-    for (int b = a; b < 4; ++b) {
-      float s0 = 0.0f, su = 0.0f, sv = 0.0f, sq = 0.0f;
-      for (int i = 0; i < n; ++i) {
-        const float u = (P.U[0][i] - P.cx) / P.fx;
-        const float v = (P.U[1][i] - P.cy) / P.fy;
-        const float ab = alpha[a][i] * alpha[b][i];
-        s0 += ab;
-        su += ab * u;
-        sv += ab * v;
-        sq += ab * (u * u + v * v);
-      }
-      S[a][b] = S[b][a] = s0;
-      SU[a][b] = SU[b][a] = su;
-      SV[a][b] = SV[b][a] = sv;
-      SQ[a][b] = SQ[b][a] = sq;
-    }
-  float M[144];
-  for (int i = 0; i < 144; ++i) M[i] = 0.0f;
-  for (int a = 0; a < 4; ++a)
-    for (int b = 0; b < 4; ++b) {
-      M[(3 * a + 0) * 12 + 3 * b + 0] = S[a][b];
-      M[(3 * a + 1) * 12 + 3 * b + 1] = S[a][b];
-      M[(3 * a + 0) * 12 + 3 * b + 2] = -SU[a][b];
-      M[(3 * a + 2) * 12 + 3 * b + 0] = -SU[a][b];
-      M[(3 * a + 1) * 12 + 3 * b + 2] = -SV[a][b];
-      M[(3 * a + 2) * 12 + 3 * b + 1] = -SV[a][b];
-      M[(3 * a + 2) * 12 + 3 * b + 2] = SQ[a][b];
-    }
+  float S40[40];
+  lane_sums<kWarp, 40>(n, MTerms{P, c0, s}, S40);
 
   // Two smallest eigenvectors: Cholesky inverse subspace iteration.
   float trace = 0.0f;
-  for (int i = 0; i < 12; ++i) trace = trace + M[i * 12 + i];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) trace = trace + m_entry(S40, i, i);
   const float ridge = 1e-6f * trace + 1e-30f;
-  float L[144];
-  {
-    float Mn[144];
-    for (int i = 0; i < 144; ++i) Mn[i] = M[i];
-    for (int i = 0; i < 12; ++i) Mn[i * 12 + i] = M[i * 12 + i] + ridge;
-    chol_factor<12>(Mn, L);
-  }
+  float L[78], inv[12];
+  chol_factor<12>(RidgedM{S40, ridge}, L, inv);
   float w1[12], w2[12], tmp[12];
+#pragma unroll
   for (int i = 0; i < 12; ++i) {
     w1[i] = (float)(1.0 + 0.1 * i);
     w2[i] = (float)(2.0 - 0.2 * i);
   }
   for (int it = 0; it < 6; ++it) {
-    chol_solve<12>(L, w1, tmp);
+    chol_solve<12>(L, inv, w1, tmp);
+#pragma unroll
     for (int i = 0; i < 12; ++i) w1[i] = tmp[i];
-    chol_solve<12>(L, w2, tmp);
+    chol_solve<12>(L, inv, w2, tmp);
+#pragma unroll
     for (int i = 0; i < 12; ++i) w2[i] = tmp[i];
     const float n1 = sqrtf(clamp_min(dot<12>(w1, w1), 1e-30f));
+#pragma unroll
     for (int i = 0; i < 12; ++i) w1[i] = w1[i] / n1;
     const float d = dot<12>(w1, w2);
+#pragma unroll
     for (int i = 0; i < 12; ++i) w2[i] = w2[i] - d * w1[i];
     const float n2 = sqrtf(clamp_min(dot<12>(w2, w2), 1e-30f));
+#pragma unroll
     for (int i = 0; i < 12; ++i) w2[i] = w2[i] / n2;
   }
   // Rayleigh-Ritz rotation by half-angle identities.
-  matvec<12>(M, w1, tmp);
+  m_matvec(S40, w1, tmp);
   const float T11 = dot<12>(w1, tmp);
-  matvec<12>(M, w2, tmp);
+  m_matvec(S40, w2, tmp);
   const float T22 = dot<12>(w2, tmp);
   const float T12 = dot<12>(w1, tmp);
   const float aa = T11 - T22;
@@ -345,38 +555,44 @@ CP_HD void epnp_candidates(const Problem& P, float* R1, float* t1, float* R2, fl
     sth = 0.0f;
   }
   float r1[12], r2[12];
+#pragma unroll
   for (int i = 0; i < 12; ++i) {
     r1[i] = cth * w1[i] + sth * w2[i];
     r2[i] = -sth * w1[i] + cth * w2[i];
   }
-  matvec<12>(M, r1, tmp);
+  m_matvec(S40, r1, tmp);
   const float e1 = dot<12>(r1, tmp);
-  matvec<12>(M, r2, tmp);
+  m_matvec(S40, r2, tmp);
   const float e2 = dot<12>(r2, tmp);
   const bool fs = e1 <= e2;
   float v_min[12], v_2nd[12];
+#pragma unroll
   for (int i = 0; i < 12; ++i) {
     v_min[i] = fs ? r1[i] : r2[i];
     v_2nd[i] = fs ? r2[i] : r1[i];
   }
 
-  // World control points: ctrl[0] = c0, ctrl[1+c] = c0 + s_c e_c.
+  // World control points: ctrl[0] = c0, ctrl[1+k] = c0 + s_k e_k.
   float ctrl_w[4][3];
+#pragma unroll
   for (int a = 0; a < 4; ++a)
-    for (int c = 0; c < 3; ++c) ctrl_w[a][c] = c0[c];
-  for (int c = 0; c < 3; ++c) ctrl_w[1 + c][c] = c0[c] + s[c];
-
-  pose_from_null(P, alpha, ctrl_w, v_min, R1, t1);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) ctrl_w[a][k] = c0[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) ctrl_w[1 + k][k] = c0[k] + s[k];
 
   // Beta case N=2: 3-unknown normal equations over the 6 control-point pairs.
   float A00 = 0.0f, A01 = 0.0f, A02 = 0.0f, A11 = 0.0f, A12 = 0.0f, A22 = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+#pragma unroll
   for (int a = 0; a < 4; ++a)
+#pragma unroll
     for (int b = a + 1; b < 4; ++b) {
       float d1c[3], d2c[3], dwc[3];
-      for (int c = 0; c < 3; ++c) {
-        d1c[c] = v_min[3 * a + c] - v_min[3 * b + c];
-        d2c[c] = v_2nd[3 * a + c] - v_2nd[3 * b + c];
-        dwc[c] = ctrl_w[a][c] - ctrl_w[b][c];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        d1c[k] = v_min[3 * a + k] - v_min[3 * b + k];
+        d2c[k] = v_2nd[3 * a + k] - v_2nd[3 * b + k];
+        dwc[k] = ctrl_w[a][k] - ctrl_w[b][k];
       }
       const float r0 = dot<3>(d1c, d1c);
       const float r1_ = 2.0f * dot<3>(d1c, d2c);
@@ -410,29 +626,49 @@ CP_HD void epnp_candidates(const Problem& P, float* R1, float* t1, float* R2, fl
   const float bb1 = sqrtf(clamp_min(b11, 1e-12f));
   const float bb2m = sqrtf(clamp_min(b22, 1e-12f));
   const float bb2 = b12 < 0.0f ? -bb2m : bb2m;
-  float vker2[12];
-  for (int i = 0; i < 12; ++i) vker2[i] = bb1 * v_min[i] + bb2 * v_2nd[i];
-  pose_from_null(P, alpha, ctrl_w, vker2, R2, t2);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    vk[0][i] = v_min[i];
+    vk[1][i] = bb1 * v_min[i] + bb2 * v_2nd[i];
+  }
 }
 
-// LM refinement alone from (R, t), in place: lambda starts at 1e-4 and err at 0, as
-// casapose_tpu/ops/pnp_kernel.py's _lm_kernel; returns err of the last iteration.
-CP_HD float lm_refine(const Problem& P, int iterations, float* R, float* t) {
-  float lam = 1e-4f, err = 0.0f;
-  for (int it = 0; it < iterations; ++it) err = lm_body(P, R, t, lam);
-  return err;
-}
-
-// Full solve: both EPnP candidates, LM from each, the lower error wins.
-CP_HD void solve(const Problem& P, int iterations, float* R, float* t, float* err) {
+// Full solve on a warp: EPnP on the whole warp, then the two candidates' pose fits and LM chains at once on
+// its two halves; the lower error wins. Lane 0 writes R, t, err. On the host the halves run in turn.
+CP_HD void solve(const Problem& P, int iterations, float* R_out, float* t_out, float* err_out) {
+  float c0[3], s[3], vk[2][12];
+  epnp_null_vectors(P, c0, s, vk);
+#ifdef __CUDA_ARCH__
+  const bool second = (threadIdx.x & 16) != 0;
+  float v[12], R[9], t[3];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) v[i] = second ? vk[1][i] : vk[0][i];
+  pose_from_null<kHalf>(P, c0, s, v, R, t);
+  const float err = lm_refine(P, iterations, R, t);
+  // Lane 0 holds candidate a (beta-1), lane 16 candidate b (beta-2).
+  const float err_b = __shfl_sync(0xffffffffu, err, 16);
+  float Rb[9], tb[3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) Rb[i] = __shfl_sync(0xffffffffu, R[i], 16);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) tb[i] = __shfl_sync(0xffffffffu, t[i], 16);
+  if (threadIdx.x == 0) {
+    const bool use_a = err <= err_b;
+    for (int i = 0; i < 9; ++i) R_out[i] = use_a ? R[i] : Rb[i];
+    for (int i = 0; i < 3; ++i) t_out[i] = use_a ? t[i] : tb[i];
+    *err_out = nan_min(err, err_b);
+  }
+#else
   float Ra[9], ta[3], Rb[9], tb[3];
-  epnp_candidates(P, Ra, ta, Rb, tb);
+  pose_from_null<kHalf>(P, c0, s, vk[0], Ra, ta);
+  pose_from_null<kHalf>(P, c0, s, vk[1], Rb, tb);
   const float err_a = lm_refine(P, iterations, Ra, ta);
   const float err_b = lm_refine(P, iterations, Rb, tb);
   const bool use_a = err_a <= err_b;
-  for (int i = 0; i < 9; ++i) R[i] = use_a ? Ra[i] : Rb[i];
-  for (int i = 0; i < 3; ++i) t[i] = use_a ? ta[i] : tb[i];
-  *err = nan_min(err_a, err_b);
+  for (int i = 0; i < 9; ++i) R_out[i] = use_a ? Ra[i] : Rb[i];
+  for (int i = 0; i < 3; ++i) t_out[i] = use_a ? ta[i] : tb[i];
+  *err_out = nan_min(err_a, err_b);
+#endif
 }
 
 }  // namespace cpnp

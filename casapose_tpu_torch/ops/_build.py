@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> (source stem, argtypes). Each returns a cudaError_t as int.
 _SIGNATURES = {
-    "voting_accumulate": ("voting", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "voting_grid": ("voting", [_I, _I, _I, _I, _I, _I, _P]),
+    "voting_accumulate": ("voting", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "solve_pnp": ("pnp", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "lm_refine": ("pnp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }

@@ -370,7 +370,7 @@ def _check(fn, name, x, shape, device):
 
 
 def _check_problem(fn, pts2d, pts3d, K):
-    """Check the shared inputs; return (B, N, kparams [fx, fy, cx, cy], R, t, err outputs)."""
+    """Check the shared inputs; return (B, N, R, t, err outputs). The kernels read fx, fy, cx, cy from K itself."""
     B, N, _ = pts2d.shape
     if N > _MAX_POINTS:
         raise ValueError(f"{fn}: at most {_MAX_POINTS} points per detection, got {N}")
@@ -378,11 +378,10 @@ def _check_problem(fn, pts2d, pts3d, K):
     _check(fn, "pts2d", pts2d, (B, N, 2), dev)
     _check(fn, "pts3d", pts3d, (B, N, 3), dev)
     _check(fn, "K", K, (3, 3), dev)
-    kparams = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).contiguous()
     R = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
     t = torch.empty((B, 3), dtype=torch.float32, device=dev)
     err = torch.empty((B,), dtype=torch.float32, device=dev)
-    return B, N, kparams, R, t, err
+    return B, N, R, t, err
 
 
 def _ptr(x):
@@ -397,12 +396,12 @@ def solve_pnp_kernel(pts2d, pts3d, K, iterations=10):
     """
     if not pts2d.is_cuda:
         return solve_pnp_plain(pts2d, pts3d, K, iterations)
-    B, N, kparams, R, t, err = _check_problem("solve_pnp_kernel", pts2d, pts3d, K)
+    B, N, R, t, err = _check_problem("solve_pnp_kernel", pts2d, pts3d, K)
     if B == 0:
         return R, t, err
     lib = _build.load("pnp")
     rc = lib.solve_pnp(
-        _ptr(pts2d), _ptr(pts3d), _ptr(kparams), _ptr(R), _ptr(t), _ptr(err),
+        _ptr(pts2d), _ptr(pts3d), _ptr(K), _ptr(R), _ptr(t), _ptr(err),
         B, N, iterations, ctypes.c_void_p(torch.cuda.current_stream(pts2d.device).cuda_stream),
     )
     if rc != 0:
@@ -421,14 +420,14 @@ def lm_refine(R0, t0, pts2d, pts3d, K, iterations=10):
     """
     if not pts2d.is_cuda:
         return lm_refine_plain(R0, t0, pts2d, pts3d, K, iterations)
-    B, N, kparams, R, t, err = _check_problem("lm_refine", pts2d, pts3d, K)
+    B, N, R, t, err = _check_problem("lm_refine", pts2d, pts3d, K)
     _check("lm_refine", "R0", R0, (B, 3, 3), pts2d.device)
     _check("lm_refine", "t0", t0, (B, 3), pts2d.device)
     if B == 0:
         return R, t, err
     lib = _build.load("pnp")
     rc = lib.lm_refine(
-        _ptr(R0), _ptr(t0), _ptr(pts2d), _ptr(pts3d), _ptr(kparams), _ptr(R), _ptr(t), _ptr(err),
+        _ptr(R0), _ptr(t0), _ptr(pts2d), _ptr(pts3d), _ptr(K), _ptr(R), _ptr(t), _ptr(err),
         B, N, iterations, ctypes.c_void_p(torch.cuda.current_stream(pts2d.device).cuda_stream),
     )
     if rc != 0:

@@ -19,8 +19,9 @@ import torch
 
 from casapose_tpu_torch.ops import _build
 
-# Rows of one image that one block of the first pass reduces.
-ROWS_PER_TILE = 2
+# The kernel's blocks per image and group and its stages per warp, by (device, b, h, w, c, seg_dim, k): the C
+# side sizes them with the occupancy API once, outside any CUDA graph capture.
+_GRID = {}
 
 
 def voting_accumulate_plain(output_net, labels, seg_dim, num_points):
@@ -52,7 +53,7 @@ def voting_accumulate_plain(output_net, labels, seg_dim, num_points):
     qx = bb * cy + d * cx
     feats = torch.stack([a, bb, d, qy, qx, wgt], dim=-1)  # [b, h, w, k, 6]
     hot = (labels.to(torch.int64)[..., None] == torch.arange(1, seg_dim, device=labels.device)).to(dtype)
-    # Per-row partial sums, then a sum over rows, as the kernel's two passes: one contraction over
+    # Per-row partial sums, then a sum over rows, as the kernel sums in stages: one contraction over
     # all h*w pixels rounds ~10x worse in float32 on the card (chip_smoke.py phase 4).
     return torch.einsum("bhwo,bhwkf->bhokf", hot, feats).sum(dim=1)
 
@@ -72,18 +73,26 @@ def voting_accumulate(output_net, labels, seg_dim, num_points):
         raise ValueError("voting_accumulate: output_net must be contiguous float32")
     if labels.dtype != torch.int32 or tuple(labels.shape) != (b, h, w) or not labels.is_contiguous() or labels.device != dev:
         raise ValueError(f"voting_accumulate: labels must be contiguous int32 {(b, h, w)} on {dev}")
-    if c < seg_dim + 3 * k or not 1 <= k <= 32 or oc < 1:
+    if c < seg_dim + 3 * k or k < 1 or oc < 1:
         raise ValueError(f"voting_accumulate: {c} channels cannot hold seg_dim={seg_dim} and {k} keypoints")
-    n_tiles = -(-h // ROWS_PER_TILE)
-    partials = torch.empty((b, n_tiles, oc, k, 6), dtype=torch.float32, device=dev)
     out = torch.empty((b, oc, k, 6), dtype=torch.float32, device=dev)
     if b == 0 or h == 0 or w == 0:
         return out.zero_()
     lib = _build.load("voting")
+    key = (dev.index, b, h, w, c, seg_dim, k)
+    if key not in _GRID:
+        stages = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            gx = lib.voting_grid(b, h, w, c, seg_dim, k, ctypes.byref(stages))
+        if gx < 1:
+            raise RuntimeError(f"voting_grid failed: CUDA error {-gx}")
+        _GRID[key] = (gx, stages.value)
+    gx, stages = _GRID[key]
+    partials = torch.empty((b, gx, oc, k, 6), dtype=torch.float32, device=dev)
     rc = lib.voting_accumulate(
         ctypes.c_void_p(output_net.data_ptr()), ctypes.c_void_p(labels.data_ptr()),
         ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        b, h, w, c, seg_dim, k, ROWS_PER_TILE, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        b, h, w, c, seg_dim, k, gx, stages, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"voting_accumulate kernel launch failed: CUDA error {rc}")

@@ -8,10 +8,14 @@ Phases, one line each with its seconds:
   2. build: every kernel in casapose_tpu_torch/csrc, one nvcc per source,
      all started together, with ptxas's register / spill report;
   3. pnp: the PnP kernel against its plain version at B=256, N=9 on planted
-     poses and random rows, all-zero rows through solve_pnp, and planted
-     poses at the eval path's B = 8 and 64 (one partly filled block);
+     poses and random rows, the same bits on a second run, all-zero rows
+     through solve_pnp, and planted poses at the eval path's B = 8 and 64,
+     each with its kernel_ms and call_ms (below);
   4. voting: the voting kernel against its plain version run in float64 at
-     b=1 and b=32, 480x640, C=36, and the same bits on a second run;
+     b=1 and b=32, 480x640, C=36, and the same bits on a second run (also
+     at b=2 with 13 objects, C=41, and with 12 keypoints); at
+     b=32 its kernel_ms on these random dense labels (every segment of 32
+     pixels mixes classes: the kernel's slowest case);
   5. step: the flagship inference step (casapose_c_gcu5 -> CC-filtered LS
      voting -> EPnP+LM) at 480x640, 8 objects, 9 keypoints, float32 with
      TF32 off, random weights from a seed, at batch 1 and 32 on a zero and a
@@ -23,7 +27,12 @@ Phases, one line each with its seconds:
      problems);
   6. timings with CUDA events: ms/image of the step and of its stages, each
      kernel, its plain version and, where one exists, a PyTorch yardstick
-     (library_ms);
+     (library_ms). A kernel's own device time, kernel_ms, is taken from 20
+     wrapper calls captured in a CUDA graph and replayed between CUDA events
+     (the wrapper's host checks, allocations and ctypes call drop out; if
+     capture fails, from torch.profiler's kernel times instead, and the JSON
+     line says which); call_ms is 20 eager calls between events, what a step
+     pays per call;
   7. lm: the LM kernel (lm_refine) driven as its one caller drives it (refine
      perturbed starts, at B=256, N=9, 10 and 12 iterations), then held
      against its plain version: max |dR|, |dt|, err < 1e-6 without noise,
@@ -48,8 +57,8 @@ Phases, one line each with its seconds:
      float64 numpy oracle (scipy's KD-tree for ADD-S): per-object sums, and
      ADD-S per row with every row symmetric;
  10. eval timings with CUDA events: the step's ms/image at batch 1 and 32
-     (eval_chunk 8) and its stages, and the LM kernel, its plain version and
-     its bound;
+     (eval_chunk 8) and its stages, and the LM kernel's kernel_ms and
+     call_ms, its plain version and its bound;
  11. harness: `python -m casapose_tpu_torch.eval` on a 480x640, 8-object
      synthetic NDDS scene written to a temporary directory, at
      --batchsize_test 32 --eval_chunk 8.
@@ -102,6 +111,64 @@ def cuda_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+KERNEL_MS_METHOD = {}  # kernel name -> "cuda graph" or "profiler", the method kernel_ms used
+
+
+def kernel_ms(name, fn, iters=20, reps=5):
+    """Device milliseconds of one ``fn()`` (a kernel wrapper call) without its host work.
+
+    ``iters`` calls are captured in a CUDA graph, and the graph is replayed
+    ``reps`` times between CUDA events: only the device work is replayed, so
+    the wrapper's checks, allocations and ctypes call drop out. If capture
+    fails, the kernels' own device time is summed from torch.profiler's
+    ``key_averages()`` instead. The method used is kept in KERNEL_MS_METHOD.
+    """
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:  # capture refused: time the kernels from a trace instead
+        print(f"  kernel_ms {name}: graph capture failed ({e}); using torch.profiler", flush=True)
+        KERNEL_MS_METHOD[name] = "profiler"
+        return profiler_kernel_ms(fn, iters)
+    KERNEL_MS_METHOD[name] = "cuda graph"
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def profiler_kernel_ms(fn, iters):
+    """Device milliseconds per ``fn()`` of the CUDA kernels it launches, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                   for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / iters
+
+
 def random_rotations(rng, n):
     q = rng.normal(size=(n, 4))
     return quaternion_rotations(q / np.linalg.norm(q, axis=1, keepdims=True))
@@ -121,20 +188,50 @@ def pnp_problems(B, n_random, seed=0):
     return f32(pts2d), f32(pts3d), f32(K), f32(R), f32(t)
 
 
-def voting_inputs(b, seed):
-    """Raw output [b, H, W, C] (normal noise, one planted blob whose directions point at a keypoint) and
-    random labels [b, H, W] in 0..8 with the blob labelled 1."""
+def voting_inputs(b, seed, seg_dim=SEG_DIM, k=K_POINTS):
+    """Raw output [b, H, W, seg_dim + 3k] (normal noise, one planted blob whose directions point at a keypoint)
+    and random labels [b, H, W] in 0..seg_dim-1 with the blob labelled 1."""
     rng = np.random.default_rng(seed)
-    raw = rng.normal(size=(b, H, W, CHANNELS)).astype(np.float32)
-    labels = rng.integers(0, SEG_DIM, (b, H, W)).astype(np.int32)
+    raw = rng.normal(size=(b, H, W, seg_dim + 3 * k)).astype(np.float32)
+    labels = rng.integers(0, seg_dim, (b, H, W)).astype(np.int32)
     y0, x0 = 200, 300
     yy, xx = np.mgrid[y0 : y0 + 64, x0 : x0 + 96]
-    for j in range(K_POINTS):
+    for j in range(k):
         ky, kx = rng.uniform(0, H), rng.uniform(0, W)
-        raw[:, y0 : y0 + 64, x0 : x0 + 96, SEG_DIM + 2 * j] = ky - yy
-        raw[:, y0 : y0 + 64, x0 : x0 + 96, SEG_DIM + 2 * j + 1] = kx - xx
+        raw[:, y0 : y0 + 64, x0 : x0 + 96, seg_dim + 2 * j] = ky - yy
+        raw[:, y0 : y0 + 64, x0 : x0 + 96, seg_dim + 2 * j + 1] = kx - xx
     labels[:, y0 : y0 + 64, x0 : x0 + 96] = 1
     return raw, labels
+
+
+def check_voting(raw, lab, seg_dim, k):
+    """The voting kernel twice and its plain version in float32 and float64 on (raw, lab): raises unless the
+    kernel is within the float64 tolerance and repeats its bits. Returns (S kernel, S plain, err, plain err,
+    allowed)."""
+    import torch
+
+    from casapose_tpu_torch.ops.voting_kernel import voting_accumulate, voting_accumulate_plain
+
+    S1 = voting_accumulate(raw, lab, seg_dim, k)
+    S2 = voting_accumulate(raw, lab, seg_dim, k)
+    Sp = voting_accumulate_plain(raw, lab, seg_dim, k)
+    S64 = voting_accumulate_plain(raw.double(), lab, seg_dim, k)
+    torch.cuda.synchronize()
+    # Held against the plain version in float64, as tests/test_voting_kernel.py:51 holds the Pallas
+    # kernel against a float64 oracle: atol 2e-4 plus rtol 2e-5 of the sum of |terms|. A class here
+    # sums ~34,000 terms whose signed features cancel, so float32 rounding in ANY order is ~1e-7 of
+    # that absolute sum, not of |S|. |a|, |b|, |d| <= w and |qy|, |qx| <= w (1 + W/H) bound it by the
+    # weight mass S[..., 5].
+    scale = torch.tensor([1.0, 1.0, 1.0, 1 + W / H, 1 + W / H, 1.0], device=raw.device, dtype=torch.float64)
+    allowed = 2e-4 + 2e-5 * S64[..., 5:6] * scale
+    err = (S1.double() - S64).abs()
+    plain_err = (Sp.double() - S64).abs()
+    if not (err <= allowed).all():
+        raise AssertionError(f"voting kernel disagrees with float64 (seg_dim {seg_dim}, k {k}): worst |dS| / allowed "
+                             f"{(err / allowed).max().item()}")
+    if not torch.equal(S1, S2):
+        raise AssertionError("voting kernel: two runs differ in their bits")
+    return S1, Sp, err, plain_err, allowed
 
 
 def reprojection_sq(poses, coords, keypoints3d, camera):
@@ -671,14 +768,16 @@ def phase_eval_timings(model, step, batches, lm_inputs, kernels):
     R0, t0_, p2, p3, Kn = lm_inputs
     lm = kernels["lm_refine"]
     B = p2.shape[0]
-    lm["ms"] = cuda_ms(lambda: lm_refine(R0, t0_, p2, p3, Kn, iterations=10), 20)
+    lm["kernel_ms"] = lm["ms"] = kernel_ms("lm_refine", lambda: lm_refine(R0, t0_, p2, p3, Kn, iterations=10))
+    lm["call_ms"] = cuda_ms(lambda: lm_refine(R0, t0_, p2, p3, Kn, iterations=10), 20)
     lm["plain_ms"] = cuda_ms(lambda: lm_refine_plain(R0, t0_, p2, p3, Kn, iterations=10), 2)
     lm["library_ms"] = None
     l_bytes = B * (12 + K_POINTS * 5) * 4 + 16 + B * 13 * 4
     l_ops = B * lm_flops(K_POINTS, 10)
     lm["bound_ms"] = max(l_bytes / PEAK_BYTES_PER_S, l_ops / PEAK_F32_FLOP_PER_S) * 1e3
     lm["bound_by"] = "bytes" if l_bytes / PEAK_BYTES_PER_S >= l_ops / PEAK_F32_FLOP_PER_S else "operations"
-    say("time", t0, f"lm_refine B={B}, 10 iterations: kernel {lm['ms']:.4f} ms, plain {lm['plain_ms']:.4f} ms, "
+    say("time", t0, f"lm_refine B={B}, 10 iterations: kernel_ms {lm['kernel_ms']:.4f} ({KERNEL_MS_METHOD['lm_refine']}), "
+        f"call_ms {lm['call_ms']:.4f}, plain {lm['plain_ms']:.4f} ms, "
         f"bound {lm['bound_ms']:.6f} ms ({lm['bound_by']})")
 
 
@@ -755,8 +854,11 @@ def main():
     p2, p3, Kn, R_gt, t_gt = pnp_problems(B, n_random)
     p2c, p3c, Kc = (torch.from_numpy(a).to(dev) for a in (p2, p3, Kn))
     Rk, tk, ek = solve_pnp_kernel(p2c, p3c, Kc)
+    Rk2, tk2, ek2 = solve_pnp_kernel(p2c, p3c, Kc)
     Rp, tp, ep = solve_pnp_plain(p2c, p3c, Kc)
     torch.cuda.synchronize()
+    if not (torch.equal(Rk, Rk2) and torch.equal(tk, tk2) and torch.equal(ek, ek2)):
+        raise AssertionError("PnP kernel: two runs differ in their bits")
     planted = slice(0, B - n_random)
     dR = (Rk - Rp).abs()[planted].max().item()
     dt = (tk - tp).abs()[planted].max().item()
@@ -775,7 +877,8 @@ def main():
     kernels["pnp"] = {"max_abs_err": max(dR, dt)}
     say("pnp", t0, f"B={B}: planted max|dR| {dR:.3g} max|dt| {dt:.3g} max|derr| {de:.3g} (atol R 1e-4, t 2e-4); "
         f"kernel vs planted truth max|dt| {gt_dt:.3g}; random rows max|dR| {rand_dR:.3g} max|dt| {rand_dt:.3g}; "
-        f"8 all-zero rows -> placeholder pose")
+        f"8 all-zero rows -> placeholder pose; second run bit-identical")
+    kernels["pnp"]["kernel_ms_by_B"] = {}
     for Bs in (8, 64):  # the eval step's B at batch 1 and per chunk of 8: one block of 128 threads, partly filled
         p2s, p3s, Ks, _, t_s = (torch.from_numpy(a).to(dev) for a in pnp_problems(Bs, 0, seed=Bs))
         Rk, tk, ek = solve_pnp_kernel(p2s, p3s, Ks)
@@ -785,38 +888,39 @@ def main():
         if not (dR <= 1e-4 and dt <= 2e-4 and gt_dt <= 2e-4):
             raise AssertionError(f"PnP kernel disagrees at B={Bs}: |dR| {dR}, |dt| {dt}, |t - t_gt| {gt_dt}")
         kernels["pnp"]["max_abs_err"] = max(kernels["pnp"]["max_abs_err"], dR, dt)
+        own = kernel_ms("pnp", lambda: solve_pnp_kernel(p2s, p3s, Ks))
+        call = cuda_ms(lambda: solve_pnp_kernel(p2s, p3s, Ks), 20)
+        kernels["pnp"]["kernel_ms_by_B"][Bs] = {"kernel_ms": own, "call_ms": call}
         say("pnp", t0, f"B={Bs} planted: max|dR| {dR:.3g} max|dt| {dt:.3g} (atol R 1e-4, t 2e-4); kernel vs planted "
-            f"truth max|dt| {gt_dt:.3g}")
+            f"truth max|dt| {gt_dt:.3g}; kernel_ms {own:.4f} ({KERNEL_MS_METHOD['pnp']}), call_ms {call:.4f}")
 
     # 4. voting kernel against its plain version, b = 1 and 32
     t0 = time.time()
     for b in (1, 32):
         raw_np, lab_np = voting_inputs(b, seed=b)
         raw, lab = torch.from_numpy(raw_np).to(dev), torch.from_numpy(lab_np).to(dev)
-        S1 = voting_accumulate(raw, lab, SEG_DIM, K_POINTS)
-        S2 = voting_accumulate(raw, lab, SEG_DIM, K_POINTS)
-        Sp = voting_accumulate_plain(raw, lab, SEG_DIM, K_POINTS)
-        S64 = voting_accumulate_plain(raw.double(), lab, SEG_DIM, K_POINTS)
-        torch.cuda.synchronize()
-        # Held against the plain version in float64, as tests/test_voting_kernel.py:51 holds the Pallas
-        # kernel against a float64 oracle: atol 2e-4 plus rtol 2e-5 of the sum of |terms|. A class here
-        # sums ~34,000 terms whose signed features cancel, so float32 rounding in ANY order is ~1e-7 of
-        # that absolute sum, not of |S|. |a|, |b|, |d| <= w and |qy|, |qx| <= w (1 + W/H) bound it by the
-        # weight mass S[..., 5].
-        scale = torch.tensor([1.0, 1.0, 1.0, 1 + W / H, 1 + W / H, 1.0], device=dev, dtype=torch.float64)
-        allowed = 2e-4 + 2e-5 * S64[..., 5:6] * scale
-        err = (S1.double() - S64).abs()
-        plain_err = (Sp.double() - S64).abs()
-        if not (err <= allowed).all():
-            raise AssertionError(f"voting kernel disagrees with float64: worst |dS| / allowed {(err / allowed).max().item()}")
-        if not torch.equal(S1, S2):
-            raise AssertionError("voting kernel: two runs differ in their bits")
-        kernels["voting"] = {"max_abs_err": (S1 - Sp).abs().max().item()}
+        S1, Sp, err, plain_err, allowed = check_voting(raw, lab, SEG_DIM, K_POINTS)
+        kernels.setdefault("voting", {"max_abs_err": 0.0})
+        kernels["voting"]["max_abs_err"] = max(kernels["voting"]["max_abs_err"], (S1 - Sp).abs().max().item())
+        timing = ""
+        if b == 32:  # random dense labels: the worst case for any class-coherence path
+            own = kernel_ms("voting", lambda: voting_accumulate(raw, lab, SEG_DIM, K_POINTS))
+            kernels["voting"]["kernel_ms_random_labels"] = own
+            timing = f"; kernel_ms on these random labels {own:.4f} ({KERNEL_MS_METHOD['voting']})"
         say("voting", t0, f"b={b} {H}x{W} C={CHANNELS}: vs float64 max|dS| kernel {err.max().item():.3g}, plain "
             f"{plain_err.max().item():.3g}; worst kernel |dS| / allowed {(err / allowed).max().item():.3g}, plain "
             f"{(plain_err / allowed).max().item():.3g}; kernel vs plain max|dS| {(S1 - Sp).abs().max().item():.3g}, "
-            f"max|S| {Sp.abs().max().item():.4g}; second run bit-identical")
-        del raw, lab, S1, S2, Sp, S64
+            f"max|S| {Sp.abs().max().item():.4g}; second run bit-identical{timing}")
+        del raw, lab, S1, Sp, err, plain_err, allowed
+    # Shapes of other configurations: 13 objects (C = 41, records not 16-byte aligned, two class groups) and
+    # 12 keypoints (two keypoint groups), b = 2.
+    for objects, k in ((13, 9), (3, 12)):
+        raw_np, lab_np = voting_inputs(2, seed=objects, seg_dim=objects + 1, k=k)
+        raw, lab = torch.from_numpy(raw_np).to(dev), torch.from_numpy(lab_np).to(dev)
+        _, _, err, _, allowed = check_voting(raw, lab, objects + 1, k)
+        say("voting", t0, f"b=2 {objects} objects, {k} keypoints, C={raw.shape[-1]}: vs float64 max|dS| "
+            f"{err.max().item():.3g}, worst |dS| / allowed {(err / allowed).max().item():.3g}; second run bit-identical")
+        del raw, lab
 
     # 5. the flagship step, kernels and plain versions
     t0 = time.time()
@@ -905,26 +1009,37 @@ def main():
     n_fg = int((lab_f > 0).sum())
     b = img.shape[0]
     vote = kernels["voting"]
-    vote["ms"] = cuda_ms(lambda: voting_accumulate(out, lab_f, SEG_DIM, K_POINTS), 20)
+    vote["kernel_ms"] = vote["ms"] = kernel_ms("voting", lambda: voting_accumulate(out, lab_f, SEG_DIM, K_POINTS))
+    vote["call_ms"] = cuda_ms(lambda: voting_accumulate(out, lab_f, SEG_DIM, K_POINTS), 20)
     vote["plain_ms"] = cuda_ms(lambda: voting_accumulate_plain(out, lab_f, SEG_DIM, K_POINTS), 3)
     vote["library_ms"] = cuda_ms(lambda: einsum_sums(hot, dirs, conf, False), 3)
     v_bytes = lab_f.numel() * 4 + n_fg * 3 * K_POINTS * 4 + b * OBJECTS * K_POINTS * 6 * 4
     v_ops = n_fg * K_POINTS * 32  # direction, softplus, 6 features, 6 sums per pixel and keypoint
     vote["bound_ms"] = max(v_bytes / PEAK_BYTES_PER_S, v_ops / PEAK_F32_FLOP_PER_S) * 1e3
     vote["bound_by"] = "bytes" if v_bytes / PEAK_BYTES_PER_S >= v_ops / PEAK_F32_FLOP_PER_S else "operations"
-    say("time", t0, f"voting b={b}: kernel {vote['ms']:.4f} ms, plain {vote['plain_ms']:.4f} ms, einsum form "
+    # What these labels ask of the kernel, which copies whole 32-pixel segments that hold a labelled pixel.
+    classes = sum((lab_f.reshape(-1, 32) == c).any(1).int() for c in range(1, SEG_DIM))
+    mixed = (classes >= 2).float().mean().item()
+    copied_gb = (int((classes >= 1).sum()) * 32 * CHANNELS * 4 + lab_f.numel() * 4) / 1e9
+    say("time", t0, f"voting b={b}: {mixed:.1%} of the 32-pixel segments mix classes, the kernel copies "
+        f"{copied_gb:.3f} GB against the bound's {v_bytes / 1e9:.3f} GB")
+    say("time", t0, f"voting b={b}: kernel_ms {vote['kernel_ms']:.4f} ({KERNEL_MS_METHOD['voting']}), "
+        f"{vote['bound_ms'] / vote['kernel_ms']:.1%} of the bound; call_ms {vote['call_ms']:.4f}, plain {vote['plain_ms']:.4f} ms, einsum form "
         f"{vote['library_ms']:.4f} ms, bound {vote['bound_ms']:.4f} ms ({vote['bound_by']}; {n_fg} labelled px)")
 
     Bp = pts2d.shape[0]
     pnp = kernels["pnp"]
-    pnp["ms"] = cuda_ms(lambda: solve_pnp_kernel(pts2d, pts3d, K0), 20)
+    pnp["kernel_ms"] = pnp["ms"] = kernel_ms("pnp", lambda: solve_pnp_kernel(pts2d, pts3d, K0))
+    pnp["call_ms"] = cuda_ms(lambda: solve_pnp_kernel(pts2d, pts3d, K0), 20)
+    pnp["kernel_ms_by_B"][Bp] = {"kernel_ms": pnp["kernel_ms"], "call_ms": pnp["call_ms"]}
     pnp["plain_ms"] = cuda_ms(lambda: solve_pnp_plain(pts2d, pts3d, K0), 2)
     pnp["library_ms"] = None
     p_bytes = Bp * K_POINTS * 5 * 4 + 16 + Bp * 13 * 4
     p_ops = Bp * pnp_flops(K_POINTS, 10)
     pnp["bound_ms"] = max(p_bytes / PEAK_BYTES_PER_S, p_ops / PEAK_F32_FLOP_PER_S) * 1e3
     pnp["bound_by"] = "bytes" if p_bytes / PEAK_BYTES_PER_S >= p_ops / PEAK_F32_FLOP_PER_S else "operations"
-    say("time", t0, f"pnp B={Bp}: kernel {pnp['ms']:.4f} ms, plain {pnp['plain_ms']:.4f} ms, "
+    say("time", t0, f"pnp B={Bp}: kernel_ms {pnp['kernel_ms']:.4f} ({KERNEL_MS_METHOD['pnp']}), call_ms "
+        f"{pnp['call_ms']:.4f}, plain {pnp['plain_ms']:.4f} ms, "
         f"bound {pnp['bound_ms']:.6f} ms ({pnp['bound_by']})")
 
     del out, seg, dirs, conf, labels, hot, lab_f, coords, cases
@@ -947,7 +1062,9 @@ def main():
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(k["launches_by_path"].values()), "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"], "launches_by_path": k["launches_by_path"]})
+                     "library_ms": k["library_ms"], "kernel_ms": k["kernel_ms"], "call_ms": k["call_ms"],
+                     "kernel_ms_method": KERNEL_MS_METHOD[name], "launches_by_path": k["launches_by_path"],
+                     **{key: k[key] for key in ("kernel_ms_by_B", "kernel_ms_random_labels") if key in k}})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

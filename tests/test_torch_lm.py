@@ -112,10 +112,10 @@ def host_lib(tmp_path_factory):
 def _run_host(lib, R0, t0, pts2d, pts3d, iterations):
     B, N, _ = pts2d.shape
     ins = [np.ascontiguousarray(a, np.float32) for a in (R0, t0, pts2d, pts3d)]
-    kparams = np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], np.float32)
+    cam = np.ascontiguousarray(K, np.float32)  # [3, 3]: the kernel reads fx, fy, cx, cy from K itself
     R, t, err = np.zeros((B, 3, 3), np.float32), np.zeros((B, 3), np.float32), np.zeros(B, np.float32)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    rc = lib.lm_refine_host(*(ptr(a) for a in (*ins, kparams, R, t, err)), B, N, iterations)
+    rc = lib.lm_refine_host(*(ptr(a) for a in (*ins, cam, R, t, err)), B, N, iterations)
     assert rc == 0
     return R, t, err
 

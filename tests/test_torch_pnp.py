@@ -120,7 +120,7 @@ def test_kernel_math_compiled_for_the_host_matches_pallas(planted, tmp_path_fact
     p2, p3, R, t, Rj, tj, ej = planted
     B = p2.shape[0]
     Rh, th, eh = np.zeros((B, 3, 3), np.float32), np.zeros((B, 3), np.float32), np.zeros(B, np.float32)
-    kp = np.array([CAMERA[0, 0], CAMERA[1, 1], CAMERA[0, 2], CAMERA[1, 2]], np.float32)
+    kp = np.ascontiguousarray(CAMERA, np.float32)  # [3, 3]: the kernel reads fx, fy, cx, cy from K itself
     p2c, p3c = np.ascontiguousarray(p2), np.ascontiguousarray(p3)
     rc = lib.solve_pnp_host(*(a.ctypes.data for a in (p2c, p3c, kp, Rh, th, eh)), B, 9, 10)
     assert rc == 0

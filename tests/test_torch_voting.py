@@ -1,13 +1,22 @@
 """casapose_tpu_torch connected components and voting against casapose_tpu on the CPU.
 
 Labels and keep-masks must be exactly equal. The voting kernel's plain
-version is held against ``voting_accumulate_pallas(..., interpret=True)``
-(rtol 2e-5, atol 2e-4, as tests/test_voting_kernel.py:51) and ``ls_voting``
-against the JAX ``ls_voting`` (rtol 1e-4, atol 5e-3 px, as :78).
+version, and the kernel's own arithmetic and summation order compiled for the
+host (csrc/voting_host.cpp), are held against
+``voting_accumulate_pallas(..., interpret=True)`` (rtol 2e-5, atol 2e-4, as
+tests/test_voting_kernel.py:51) and ``ls_voting`` against the JAX
+``ls_voting`` (rtol 1e-4, atol 5e-3 px, as :78).
 """
+
+import ctypes
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _blobs(seed, m=5, h=40, w=48):
@@ -106,6 +115,57 @@ def test_voting_plain_matches_pallas_interpret():
     voting_accumulate.launches = 0
     np.testing.assert_array_equal(voting_accumulate(torch.from_numpy(raw), torch.from_numpy(labels), c, 9).numpy(), got.numpy())
     assert voting_accumulate.launches == 0
+
+
+@pytest.fixture(scope="module")
+def host_voting_lib(tmp_path_factory):
+    """csrc/voting_host.cpp built with g++: the CUDA kernel's features and order of sums, on the host."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    lib_path = str(tmp_path_factory.mktemp("voting_host") / "libvoting_host.so")
+    src = os.path.join(ROOT, "casapose_tpu_torch", "csrc", "voting_host.cpp")
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", lib_path, src], check=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.voting_accumulate_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.voting_accumulate_host.restype = ctypes.c_int
+    return lib
+
+
+def _host_voting_case(objects, seed=11):
+    """b=2, 32x24, 9 keypoints: labels of blobs (whole segments of one class: the kernel's run path),
+    background, and a band of random classes (mixed segments); raw output and labels."""
+    rng = np.random.default_rng(seed)
+    b, h, w, k = 2, 32, 24, 9
+    seg_dim = objects + 1
+    raw = rng.normal(size=(b, h, w, seg_dim + 3 * k)).astype(np.float32)
+    raw[:, :2, :4, seg_dim : seg_dim + 4] = 0.0  # zero directions take the zero guard
+    labels = np.zeros((b, h, w), np.int32)
+    labels[:, 2:12, :] = 1
+    labels[:, 12:16, 8:20] = 2
+    labels[:, 16:20] = rng.integers(0, seg_dim, (b, 4, w))
+    labels[1, 20:] = objects
+    return raw, labels, seg_dim, k
+
+
+@pytest.mark.parametrize("objects,gx", [(3, 1), (3, 2), (10, 2)])
+def test_voting_kernel_math_compiled_for_the_host_matches_pallas(host_voting_lib, objects, gx):
+    """The kernel's features and order of sums (csrc/voting_math.cuh, voting_host.cpp), with gx blocks per image,
+    against the Pallas kernel in interpret mode: rtol 2e-5, atol 2e-4, as tests/test_voting_kernel.py:51. With
+    10 objects the kernel's classes come in two groups of 8."""
+    import jax.numpy as jnp
+
+    from casapose_tpu.ops.voting_kernel import voting_accumulate_pallas
+
+    raw, labels, seg_dim, k = _host_voting_case(objects)
+    ref = np.asarray(voting_accumulate_pallas(jnp.asarray(raw), jnp.asarray(labels), seg_dim, k, interpret=True))
+    b, h, w, c = raw.shape
+    out = np.zeros((b, seg_dim - 1, k, 6), np.float32)
+    rc = host_voting_lib.voting_accumulate_host(raw.ctypes.data, labels.ctypes.data, out.ctypes.data, b, h, w, c,
+                                                seg_dim, k, gx)
+    assert rc == 0
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-4)
+    assert np.abs(ref[:, [0, 1, objects - 1]]).max(axis=(1, 2, 3)).min() > 1.0  # the blob classes hold pixels
 
 
 @pytest.mark.parametrize("filt", [False, True])
