@@ -10,9 +10,13 @@ renaming the leaf:
   params/.../scale      -> .../weight
   params/.../bias       -> .../bias
   params/.../gamma|beta -> .../gamma|beta   (CLADE, unchanged)
+  params/.../alpha_1|2  -> .../alpha_1|2     (CLADE with input, learned blend)
   batch_stats/.../mean  -> .../running_mean
   batch_stats/.../var   -> .../running_var
 
+The trainable ``HalfSize`` matrix of ``casapose_c`` is a (1, 1, d, d) HWIO
+kernel that the JAX package applies as ``x @ kernel[0, 0]``; the port keeps
+it as the equivalent 1x1 convolution weight, so the conv rule maps it.
 BatchNorm keeps the reference's eps of 2e-5 in
 ``casapose_tpu_torch/models/layers.py``.
 """
@@ -26,6 +30,8 @@ _LEAVES = {
     ("params", "bias"): "bias",
     ("params", "gamma"): "gamma",
     ("params", "beta"): "beta",
+    ("params", "alpha_1"): "alpha_1",
+    ("params", "alpha_2"): "alpha_2",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }

@@ -1,20 +1,25 @@
 """Evaluation harness: ADD(-S)/2D metrics, losses, timing, BOP export.
 
-Counterpart of ``casapose_tpu/eval.py`` on its LS-voting branch (models
-that estimate confidences and coordinates, as ``configs/config_8.ini``):
-network forward -> CC-filtered LS voting -> keypoint reprojection loss with
-the PnP solve inside -> ADD(-S)/2D metrics against the eval meshes, plus
-the losses and the per-object sums. On the card the voting sums and the PnP
-solve are the hand-written CUDA kernels.
+Counterpart of ``casapose_tpu/eval.py``. Every model of the registry, on
+every backbone, in float32 or bfloat16 (``--compute_dtype``), through one of
+two branches:
+  * least squares (``estimate_coords 1``, the confidence channels required):
+    network forward -> CC-filtered LS voting -> keypoint reprojection loss
+    with the PnP solve inside -> ADD(-S)/2D metrics; on the card the voting
+    sums and the PnP solve are the hand-written CUDA kernels;
+  * RANSAC (``estimate_coords 0``, the branch that serves PVNet): network
+    forward -> RANSAC voting (``--ransac_rounds``) -> PnP (the CUDA kernel)
+    -> metrics.
+Both add the losses and the per-object sums.
 
     python -m casapose_tpu_torch.eval -c configs/config_8.ini --datatest ... --datameshes ... [--device cpu]
 
 takes the flags of ``test_casapose.py`` and writes the same
 ``loss_test_eval.csv`` and ``test_summary_eval.csv`` (and the BOP pose
 files under ``--write_poses 1``). It runs on the card unless ``--device
-cpu`` is given. Not ported yet, and raising if asked for: the RANSAC branch
-(``estimate_coords 0``), the visual dumps, the record cache, int8 and bf16
-inference, ``.h5`` weights and orbax checkpoints.
+cpu`` is given. Not ported yet, and raising if asked for: the visual dumps,
+the record cache, int8 inference, ``--profile_dir``, a ``--matmul_precision``
+other than highest, ``.h5`` weights and orbax checkpoints.
 """
 
 import argparse
@@ -31,28 +36,28 @@ from casapose_tpu_torch.core.device import resolve_device
 from casapose_tpu_torch.core.numerics import f32_precision
 from casapose_tpu_torch.data.pipeline import prepare_device_batch
 from casapose_tpu_torch.losses.losses import LossWeights, composite_loss, keypoint_reprojection_loss, proxy_voting_dist
-from casapose_tpu_torch.models.registry import get_model
+from casapose_tpu_torch.models.registry import build_model_from_opt
 from casapose_tpu_torch.ops.vectorfield import get_all_vectorfields
 from casapose_tpu_torch.ops.voting import ls_voting
-from casapose_tpu_torch.pose.evaluation import evaluate_pose_estimates
+from casapose_tpu_torch.pose.evaluation import estimate_and_evaluate_poses, evaluate_pose_estimates
 
 
 def _check_ported(opt):
-    """Raise for the options of the JAX harness that the port does not run yet."""
+    """Raise for the options of the JAX harness that the port does not run."""
     unported = {
-        "estimate_coords 0 (the RANSAC branch)": not opt.estimate_coords,
-        "estimate_confidence 0": not opt.estimate_confidence,
         "save_eval_batches (visual dumps)": bool(opt.save_eval_batches),
         "cache_records": bool(getattr(opt, "cache_records", None)),
         "quantized_inference int8": getattr(opt, "quantized_inference", "") == "int8",
-        "compute_dtype bfloat16": getattr(opt, "compute_dtype", "float32") != "float32",
-        "custom_decoder_params": bool(getattr(opt, "custom_decoder_params", None)),
         "profile_dir": bool(getattr(opt, "profile_dir", None)),
         "matmul_precision other than highest": getattr(opt, "matmul_precision", "highest") != "highest",
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"casapose_tpu_torch.eval: not ported yet: {', '.join(asked)}")
+    if opt.estimate_coords and not opt.estimate_confidence:
+        # The JAX step passes confidence=None to ls_voting here and fails in its softplus (a TypeError).
+        raise ValueError("casapose_tpu_torch.eval: least-squares voting (estimate_coords 1) weighs the votes with "
+                         "the confidence channels; without them (estimate_confidence 0) use estimate_coords 0 (RANSAC)")
 
 
 def loss_weights_from_opt(opt):
@@ -65,7 +70,7 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
     """The evaluation step.
 
     Args:
-      model: the port's ``casapose_c_gcu5`` in eval mode, on its device.
+      model: a model of the port's registry in eval mode, on its device.
       opt: parsed config (``utils/config.py``).
       mesh_vertex_array, mesh_vertex_count: [oc, V, 3] and [oc, 1] eval meshes.
     Returns:
@@ -80,6 +85,7 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
     _check_ported(opt)
     seg_dim = 1 + no_objects
     k = opt.no_points
+    separated = opt.modelname == "pvnet"  # one direction-field stack per object, as the JAX step
     dev = next(model.parameters()).device
     mesh_vertex_array = torch.as_tensor(np.asarray(mesh_vertex_array), dtype=torch.float32, device=dev)
     mesh_vertex_count = torch.as_tensor(np.asarray(mesh_vertex_count), device=dev)
@@ -89,37 +95,51 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
         with f32_precision():
             img, target_seg = prepare_device_batch(batch["img"], batch["seg"], seg_dim, grayscale_to_rgb=not opt.color_dataset)
             target_vertex = batch["keypoints2d"]
-            target_dirs = get_all_vectorfields(target_seg, target_vertex, batch["seg"], False)
+            target_dirs = get_all_vectorfields(target_seg, target_vertex, batch["seg"], separated)
             gt_seg_input = target_seg if opt.train_vectors_with_ground_truth else None
             output_net = model(img, gt_seg_input)
             output_seg = output_net[..., :seg_dim]
-            output_dirs = output_net[..., seg_dim : seg_dim + 2 * k]
-            confidence = output_net[..., seg_dim + 2 * k :]
+            if opt.estimate_confidence:
+                output_dirs = output_net[..., seg_dim : seg_dim + 2 * k]
+                confidence = output_net[..., seg_dim + 2 * k :]
+            else:
+                output_dirs = output_net[..., seg_dim:]
+                confidence = None
 
-            coords = ls_voting(
-                target_seg if opt.train_vectors_with_ground_truth else output_seg,
-                output_dirs,
-                confidence,
-                num_points=k,
-                filter_estimates=bool(opt.confidence_filter_estimates),
-                output_second_largest_component=bool(opt.confidence_choose_second),
-                cc_downsample=int(getattr(opt, "cc_filter_downsample", 4)),
-                raw_output=output_net,
-            )
-            kp_loss, poses_est, points_est = keypoint_reprojection_loss(
-                coords, output_seg, batch["poses_gt"], batch["keypoints3d"], target_seg, batch["camera"],
-                batch["offsets"], confidence,
-                min_num=opt.min_object_size_test,
-                min_num_gt=1,
-                use_bpnp_reprojection_loss=bool(opt.use_bpnp_reprojection_loss),
-                estimate_poses=True,
-                filter_with_gt=bool(opt.filter_test_with_gt),
-            )
-            pose_stats, estimated_poses, estimated_points = evaluate_pose_estimates(
-                points_est, poses_est, batch["poses_gt"], target_seg, batch["keypoints3d"], batch["camera"],
-                batch["diameters"], evaluation_points=mesh_vertex_array, object_points_3d_count=mesh_vertex_count,
-                min_num=1,
-            )
+            kp_loss = None
+            if opt.estimate_coords:
+                coords = ls_voting(
+                    target_seg if opt.train_vectors_with_ground_truth else output_seg,
+                    output_dirs,
+                    confidence,
+                    num_points=k,
+                    filter_estimates=bool(opt.confidence_filter_estimates),
+                    output_second_largest_component=bool(opt.confidence_choose_second),
+                    cc_downsample=int(getattr(opt, "cc_filter_downsample", 4)),
+                    raw_output=output_net,
+                )
+                kp_loss, poses_est, points_est = keypoint_reprojection_loss(
+                    coords, output_seg, batch["poses_gt"], batch["keypoints3d"], target_seg, batch["camera"],
+                    batch["offsets"], confidence,
+                    min_num=opt.min_object_size_test,
+                    min_num_gt=1,
+                    use_bpnp_reprojection_loss=bool(opt.use_bpnp_reprojection_loss),
+                    estimate_poses=True,
+                    filter_with_gt=bool(opt.filter_test_with_gt),
+                )
+                pose_stats, estimated_poses, estimated_points = evaluate_pose_estimates(
+                    points_est, poses_est, batch["poses_gt"], target_seg, batch["keypoints3d"], batch["camera"],
+                    batch["diameters"], evaluation_points=mesh_vertex_array, object_points_3d_count=mesh_vertex_count,
+                    min_num=1,
+                )
+                estimated_poses = estimated_poses[:, :, 0]
+            else:
+                pose_stats, estimated_poses, estimated_points = estimate_and_evaluate_poses(
+                    output_seg, target_seg, output_dirs, batch["poses_gt"], batch["keypoints3d"], batch["camera"],
+                    batch["diameters"], batch["offsets"], evaluation_points=mesh_vertex_array,
+                    object_points_3d_count=mesh_vertex_count, min_num=1,
+                    ransac_rounds=int(getattr(opt, "ransac_rounds", 20)),
+                )
             losses = composite_loss(output_seg, target_seg, output_dirs, target_dirs, target_vertex, loss_weights,
                                     kp_loss=kp_loss)
             _, object_loss_values = proxy_voting_dist(
@@ -130,12 +150,12 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
             "losses": torch.stack(losses),
             "pose_stats": pose_stats,
             "proxy_per_object": object_loss_values,
-            "estimated_poses": estimated_poses[:, :, 0],
+            "estimated_poses": estimated_poses,
             "estimated_points": estimated_points,
             "output_seg": output_seg,
             "output_dirs": output_dirs,
             "target_dirs": target_dirs,
-            "confidence": confidence,
+            "confidence": confidence if confidence is not None else torch.zeros_like(output_seg[..., :1]),
         }
 
     chunk = int(getattr(opt, "eval_chunk", 0) or 0)
@@ -212,9 +232,8 @@ def run_evaluation(opt, device="cuda"):
     )
     mesh_vertex_array, mesh_vertex_count = test_dataset.generate_object_vertex_array()
 
-    k = opt.no_points
-    model = get_model(opt.modelname, ver_dim=3 * k, seg_dim=1 + no_objects, base_model=opt.backbonename, device=dev,
-                      generator=torch.Generator().manual_seed(int(opt.manualseed)))
+    model = build_model_from_opt(opt, no_objects, device=dev,
+                                 generator=torch.Generator().manual_seed(int(opt.manualseed)))
     _load_weights(opt, model)
     step = build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count, loss_weights_from_opt(opt))
 

@@ -3,8 +3,10 @@
 ``poses_pnp`` (the inference step's pose solve), ``estimate_poses`` (PnP on
 voted points with the loader's offsets undone) and
 ``evaluate_pose_estimates`` (the LS-voting evaluation: poses come from the
-keypoint loss, metrics from ``pose/metrics.py``). The RANSAC path
-(``estimate_and_evaluate_poses``) is not ported yet.
+keypoint loss, metrics from ``pose/metrics.py``) and
+``estimate_and_evaluate_poses`` (the RANSAC evaluation of the
+``estimate_coords 0`` models: voting in ``pose/ransac.py``, then PnP and the
+metrics).
 """
 
 import torch
@@ -12,6 +14,7 @@ import torch
 from casapose_tpu_torch.pose.epnp import pose_matrix_from_p6d, solve_pnp
 from casapose_tpu_torch.pose.geometry import transform_points_back_batch
 from casapose_tpu_torch.pose.metrics import evaluate_poses
+from casapose_tpu_torch.pose.ransac import ransac_voting_layer_all_masks
 
 
 def poses_pnp(points_estimated, seg_estimated, object_points_3d, camera_data, no_objects, min_num=20):
@@ -90,6 +93,57 @@ def evaluate_pose_estimates(points_estimated, poses, poses_gt, target_seg, objec
     )
     return (
         [valid_2d, valid_3d, valid_count, torch.zeros_like(valid_2d), err_2d, err_3d, missing, false_pos],
+        poses,
+        points_estimated,
+    )
+
+
+def estimate_and_evaluate_poses(output_seg, target_seg, output_vertex, poses_gt, object_points_3d, camera_data,
+                                diameters, offsets, evaluation_points=None, object_points_3d_count=None,
+                                points_estimated=None, min_num=20, ransac_rounds=1, generator=None, draws=None):
+    """RANSAC-voting evaluation (``pvnet`` and the other ``estimate_coords 0`` models).
+
+    The argmax segmentation's class masks; for a PVNet output with one field
+    stack per object ([b, h, w, oc * vc * 2]), each pixel's stack of its
+    predicted class (zero on the background); RANSAC voting; PnP on the voted
+    points with the loader's offsets undone; the metrics. ``generator`` and
+    ``draws`` go to ``ransac_voting_layer_all_masks``.
+
+    Returns ([valid_2d, valid_3d, valid_count, false_positive_mask, err_2d,
+    err_3d, missing, false_positive], poses [b, oc, 3, 4], points [b, oc, vc, 2] (x, y)).
+    """
+    b, h, w, c = target_seg.shape
+    _, oc, ic, _, _ = poses_gt.shape
+    vc = object_points_3d.shape[3]
+    available = (torch.sum(target_seg[:, :, :, 1:] != 0, dim=(1, 2)) > min_num).to(torch.int32)
+
+    argmax_seg = torch.argmax(output_seg, dim=3)
+    mask_one_hot = (argmax_seg[..., None] == torch.arange(c, device=argmax_seg.device)).to(output_seg.dtype)
+    if oc > 1 and output_vertex.shape[-1] == vc * oc * 2:
+        ov = output_vertex.reshape(b, h, w, oc, vc, 2)
+        sel = torch.clamp(argmax_seg - 1, min=0)
+        ov = torch.gather(ov, 3, sel[..., None, None, None].expand(b, h, w, 1, vc, 2))[:, :, :, 0]
+        output_vertex = torch.where((argmax_seg == 0)[..., None, None], torch.zeros_like(ov), ov)
+    output_vertex = output_vertex.reshape(b, h, w, vc, 2)
+
+    if points_estimated is None:
+        points_estimated = ransac_voting_layer_all_masks(
+            mask_one_hot[:, :, :, 1:], output_vertex, 512, inlier_thresh=0.99, max_iter=ransac_rounds,
+            min_num=min_num, max_num=30000, generator=generator, draws=draws)
+    else:
+        points_estimated = points_estimated * torch.tensor([h, w], dtype=torch.float32, device=output_seg.device)
+
+    poses, false_positive_mask = estimate_poses(points_estimated, object_points_3d, camera_data, available, offsets)
+    if evaluation_points is not None and object_points_3d_count is not None:
+        object_points_3d, object_points_3d_count = _tile_eval_points(evaluation_points, object_points_3d_count, b, ic)
+    else:
+        object_points_3d_count = torch.full((b, oc, ic), 9, dtype=torch.int32, device=poses_gt.device)
+    err_2d, err_3d, valid_2d, valid_3d, missing, valid_count, false_pos = evaluate_poses(
+        poses, poses_gt, points_estimated, object_points_3d, object_points_3d_count, camera_data, diameters,
+        available, 5.0,
+    )
+    return (
+        [valid_2d, valid_3d, valid_count, false_positive_mask, err_2d, err_3d, missing, false_pos],
         poses,
         points_estimated,
     )

@@ -61,7 +61,22 @@ Phases, one line each with its seconds:
      call_ms, its plain version and its bound;
  11. harness: `python -m casapose_tpu_torch.eval` on a 480x640, 8-object
      synthetic NDDS scene written to a temporary directory, at
-     --batchsize_test 32 --eval_chunk 8.
+     --batchsize_test 32 --eval_chunk 8;
+ 12. models: every name of the registry at 480x640, batch 1, float32 (the
+     11 CASAPose variants, casapose_custom also from a decoder string,
+     pvnet and pvnet_combined, on resnet18; casapose_c_gcu5 on resnet34,
+     50, 101 and 152): output shape, finiteness and forward ms;
+ 13. eval paths: three more evaluation steps at full width, each driven as
+     phase 8 drives the flagship's (launches counted under the path's own
+     name, each voting launch against float64, each PnP launch against
+     plain_kernels("pnp") on the same points, the whole step against its
+     run with the plain PnP), with ms/image and peak memory: casapose_c_gcu4_bilat on
+     resnet50 at batch 32, eval_chunk 8; pvnet down the RANSAC branch
+     (estimate_coords 0, 20 rounds) at batch 4; the flagship with
+     compute_dtype bfloat16 at batch 32, eval_chunk 8;
+ 14. bf16: the inference step with the bfloat16 network (bench.py's dtype)
+     at batch 1 and 32, its kernels counted and held as in phase 5, its
+     stages timed as in phase 6 and printed beside phase 6's float32.
 Then a "kernels" JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -217,21 +232,31 @@ def check_voting(raw, lab, seg_dim, k):
     Sp = voting_accumulate_plain(raw, lab, seg_dim, k)
     S64 = voting_accumulate_plain(raw.double(), lab, seg_dim, k)
     torch.cuda.synchronize()
-    # Held against the plain version in float64, as tests/test_voting_kernel.py:51 holds the Pallas
-    # kernel against a float64 oracle: atol 2e-4 plus rtol 2e-5 of the sum of |terms|. A class here
-    # sums ~34,000 terms whose signed features cancel, so float32 rounding in ANY order is ~1e-7 of
-    # that absolute sum, not of |S|. |a|, |b|, |d| <= w and |qy|, |qx| <= w (1 + W/H) bound it by the
-    # weight mass S[..., 5].
-    scale = torch.tensor([1.0, 1.0, 1.0, 1 + W / H, 1 + W / H, 1.0], device=raw.device, dtype=torch.float64)
-    allowed = 2e-4 + 2e-5 * S64[..., 5:6] * scale
-    err = (S1.double() - S64).abs()
+    err, allowed = voting_vs_float64(S1, S64, seg_dim, k)
     plain_err = (Sp.double() - S64).abs()
-    if not (err <= allowed).all():
-        raise AssertionError(f"voting kernel disagrees with float64 (seg_dim {seg_dim}, k {k}): worst |dS| / allowed "
-                             f"{(err / allowed).max().item()}")
     if not torch.equal(S1, S2):
         raise AssertionError("voting kernel: two runs differ in their bits")
     return S1, Sp, err, plain_err, allowed
+
+
+def voting_vs_float64(S, S64, seg_dim, k):
+    """|S - S64| and the allowed error; raises if the kernel's sums S are outside it.
+
+    Held against the plain version in float64, as tests/test_voting_kernel.py:51 holds the Pallas
+    kernel against a float64 oracle: atol 2e-4 plus rtol 2e-5 of the sum of |terms|. A class here
+    sums ~34,000 terms whose signed features cancel, so float32 rounding in ANY order is ~1e-7 of
+    that absolute sum, not of |S|. |a|, |b|, |d| <= w and |qy|, |qx| <= w (1 + W/H) bound it by the
+    weight mass S[..., 5].
+    """
+    import torch
+
+    scale = torch.tensor([1.0, 1.0, 1.0, 1 + W / H, 1 + W / H, 1.0], device=S.device, dtype=torch.float64)
+    allowed = 2e-4 + 2e-5 * S64[..., 5:6] * scale
+    err = (S.double() - S64).abs()
+    if not (err <= allowed).all():
+        raise AssertionError(f"voting kernel disagrees with float64 (seg_dim {seg_dim}, k {k}): worst |dS| / allowed "
+                             f"{(err / allowed).max().item()}")
+    return err, allowed
 
 
 def reprojection_sq(poses, coords, keypoints3d, camera):
@@ -367,18 +392,13 @@ def eval_batch(b, seed):
     }
 
 
-def planted_eval_batch(model, opt, b, seed, dev):
+def planted_eval_batch(model, opt, b, seed, dev, camera=None):
     """:func:`eval_batch` with well-posed PnP problems for the step's own voted points, as tensors on ``dev``.
 
     The step votes on the GT segmentation (train_vectors_with_ground_truth),
     so its voted points depend only on it and the network's direction
-    channels: vote here, one chunk at a time as the step does, then put each
-    present object's model keypoints where a planted pose projects them
-    exactly onto its voted points through the batch's camera (depths 0.75 to
-    0.85 m). poses_gt is the planted pose moved by (6, -4, 8) cm, so that
-    the keypoint loss is not ~0, and keypoints2d its projections, as the
-    loader writes them. Absent objects stay as the loader writes them.
-    Returns (batch, planted poses [b, oc, 3, 4], zero where absent).
+    channels: vote here, one chunk at a time as the step does, then plant
+    the keypoints (:func:`plant_keypoints`).
     """
     import torch
 
@@ -398,10 +418,27 @@ def planted_eval_batch(model, opt, b, seed, dev):
                 filter_estimates=bool(opt.confidence_filter_estimates),
                 output_second_largest_component=bool(opt.confidence_choose_second),
                 cc_downsample=int(opt.cc_filter_downsample), raw_output=out).double().cpu().numpy())
-    pts = np.concatenate(coords).reshape(-1, K_POINTS, 2)  # (y, x)
+    return plant_keypoints(batch, np.concatenate(coords), dev, camera)
+
+
+def plant_keypoints(batch, coords, dev, camera=None):
+    """Make ``batch``'s PnP problems well-posed for voted points ``coords`` [b, oc, k, 2] (y, x); tensors on ``dev``.
+
+    Each present object's model keypoints go where a planted pose projects
+    them exactly onto its voted points through ``camera`` (default CAMERA;
+    depths 0.75 to 0.85 m), which becomes the batch's camera. poses_gt is the planted pose
+    moved by (6, -4, 8) cm, so that the keypoint loss is not ~0, and
+    keypoints2d its projections, as the loader writes them. Absent objects
+    stay as the loader writes them. Returns (batch, planted poses [b, oc, 3,
+    4], zero where absent).
+    """
+    import torch
+
+    b = coords.shape[0]
+    pts = np.asarray(coords, np.float64).reshape(-1, K_POINTS, 2)  # (y, x)
     rng = np.random.default_rng(5)
     n = b * OBJECTS
-    K = np.array(CAMERA)
+    K = np.array(CAMERA if camera is None else camera, np.float64)
     R = random_rotations(rng, n)
     t = np.stack([rng.uniform(-0.05, 0.05, n), rng.uniform(-0.05, 0.05, n), rng.uniform(0.75, 0.85, n)], 1)
     xy1 = np.concatenate([pts[..., ::-1], np.ones((n, K_POINTS, 1))], axis=-1)
@@ -413,6 +450,8 @@ def planted_eval_batch(model, opt, b, seed, dev):
     uvw = (np.einsum("nij,nkj->nki", R, model_pts.reshape(n, K_POINTS, 3)) + t_gt[:, None]) @ K.T
     kp2d = (uvw[..., :2] / uvw[..., 2:])[..., ::-1].reshape(b, OBJECTS, 1, K_POINTS, 2)
     poses_gt = np.concatenate([R, t_gt[:, :, None]], -1).reshape(b, OBJECTS, 1, 3, 4)
+    batch = dict(batch)
+    batch["camera"] = np.ascontiguousarray(np.broadcast_to(K, (b, 3, 3)), np.float32)
     batch["keypoints3d"] = np.where(present, model_pts, batch["keypoints3d"]).astype(np.float32)
     batch["poses_gt"] = np.where(present, poses_gt, 0.0).astype(np.float32)
     batch["keypoints2d"] = np.where(present, kp2d, -1000.0).astype(np.float32)
@@ -420,12 +459,12 @@ def planted_eval_batch(model, opt, b, seed, dev):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}, torch.from_numpy(planted).to(dev)
 
 
-def eval_opt(chunk):
-    """The flagship evaluation config (configs/config_8.ini) with --eval_chunk."""
+def eval_opt(chunk, *flags):
+    """The flagship evaluation config (configs/config_8.ini) with --eval_chunk and any further flags."""
     from casapose_tpu_torch.utils.config import parse_config
 
     return parse_config(["-c", os.path.join(ROOT, "configs", "config_8.ini"), "--objects_to_copy_list", "",
-                         "--eval_chunk", str(chunk), "--outf", "chip_smoke/unused"])
+                         "--eval_chunk", str(chunk), "--outf", "chip_smoke/unused", *flags])
 
 
 def evaluate_poses_oracle(poses, poses_gt, pts, counts, cams, diam, filt):
@@ -525,6 +564,161 @@ def write_scene(root, n_images, seed=42):
     return names
 
 
+def inference_stage_ms(step, model, img, kp3, cam):
+    """ms of the inference step and of its stages, as the step runs them (no grad, TF32 off), with CUDA events."""
+    import torch
+
+    from casapose_tpu_torch.core.numerics import f32_precision
+    from casapose_tpu_torch.ops.voting import class_masks, filtered_labels, ls_voting
+    from casapose_tpu_torch.pose.evaluation import poses_pnp
+
+    iters = 10 if img.shape[0] == 1 else 3
+    times = {"step": cuda_ms(lambda: step(img, kp3, cam), iters, warmup=2)}
+    with torch.no_grad(), f32_precision():
+        out = model(img)
+        seg, dirs, conf = out[..., :SEG_DIM], out[..., SEG_DIM : SEG_DIM + 2 * K_POINTS], out[..., SEG_DIM + 2 * K_POINTS :]
+        coords = ls_voting(seg, dirs, conf, K_POINTS, filter_estimates=True, raw_output=out)
+        times.update({
+            "network": cuda_ms(lambda: model(img), iters),
+            "class masks + CC filter": cuda_ms(lambda: filtered_labels(*class_masks(seg, torch.float32, True)), iters),
+            "ls_voting (filter, kernel, 2x2 solve)": cuda_ms(
+                lambda: ls_voting(seg, dirs, conf, K_POINTS, filter_estimates=True, raw_output=out), iters),
+            "poses_pnp": cuda_ms(lambda: poses_pnp(coords, seg, kp3, cam, OBJECTS), iters),
+        })
+    return times
+
+
+# Every model of the registry (phase 12): the names on resnet18, then the flagship on the other backbones.
+CUSTOM_DECODER = "10001,10010,00000,10000,11001"
+REGISTRY_MODELS = [(name, "resnet18", None) for name in (
+    "casapose_c", "casapose_c_gu", "casapose_c_gcu3", "casapose_c_gcu4", "casapose_c_gcu5", "casapose_custom",
+    "casapose_c_gcu5_sw5", "casapose_c_gcu4_sw1", "casapose_c_gcu5_sw1", "casapose_c_gcu4_bilat",
+    "casapose_c_gcu4_sw2")] + [("casapose_custom", "resnet18", CUSTOM_DECODER), ("pvnet", "resnet18", None),
+                               ("pvnet_combined", "resnet18", None)] + [
+    ("casapose_c_gcu5", base, None) for base in ("resnet34", "resnet50", "resnet101", "resnet152")]
+
+
+def phase_models(dev):
+    """12. Every registry name at 480x640, batch 1, float32: output shape, finiteness, forward ms."""
+    import torch
+
+    from casapose_tpu_torch.core.numerics import f32_precision
+    from casapose_tpu_torch.models.registry import PVNET_NAMES, get_model
+
+    t0 = time.time()
+    img = torch.from_numpy(np.random.default_rng(12).normal(size=(1, H, W, 3)).astype(np.float32)).to(dev)
+    for name, base, decoder in REGISTRY_MODELS:
+        ver_dim = 2 * K_POINTS * OBJECTS if name in PVNET_NAMES else 3 * K_POINTS
+        model = get_model(name, ver_dim, SEG_DIM, base_model=base, decoder_params=decoder, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+        with torch.no_grad(), f32_precision():
+            out = model(img)
+            ms = cuda_ms(lambda: model(img), 5, warmup=1)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != (1, H, W, SEG_DIM + ver_dim) or not torch.isfinite(out).all():
+            raise AssertionError(f"{name} on {base}: output {tuple(out.shape)} not finite or of the wrong shape")
+        say("models", t0, f"{name}{' (' + decoder + ')' if decoder else ''} on {base}: output {tuple(out.shape)} "
+            f"finite; forward {ms:.3f} ms")
+        del model, out
+        torch.cuda.empty_cache()
+
+
+def phase_eval_paths(dev, kernels):
+    """13. Three more eval paths at full width, each with its launches counted under its own name."""
+    import torch
+
+    from casapose_tpu_torch.eval import build_test_step, loss_weights_from_opt
+    from casapose_tpu_torch.models.registry import build_model_from_opt
+
+    t0 = time.time()
+    verts, counts = eval_meshes()
+    # A variant's voted points can cluster within a few pixels with one far off; seen through the 480x640 camera
+    # such planted problems have several minima. A 128-px focal length makes the same pixels a wide angle.
+    short = [[128.0, 0.0, W / 2], [0.0, 128.0, H / 2], [0.0, 0.0, 1.0]]
+    paths = [
+        ("eval step casapose_c_gcu4_bilat on resnet50", 32, ("voting", "pnp"),
+         eval_opt(EVAL_CHUNK, "--modelname", "casapose_c_gcu4_bilat", "--backbonename", "resnet50")),
+        ("eval step pvnet RANSAC", 4, ("pnp",),
+         eval_opt(0, "--modelname", "pvnet", "--estimate_confidence", "0", "--estimate_coords", "0",
+                  "--ransac_rounds", "20")),
+        ("eval step casapose_c_gcu5 bfloat16", 32, ("voting", "pnp"), eval_opt(EVAL_CHUNK, "--compute_dtype", "bfloat16")),
+    ]
+    for label, b, path_kernels, opt in paths:
+        model = build_model_from_opt(opt, OBJECTS, device=dev, generator=torch.Generator().manual_seed(0))
+        step = build_test_step(model, opt, OBJECTS, verts, counts, loss_weights_from_opt(opt))
+        if opt.estimate_coords:
+            planted = planted_eval_batch(model, opt, b, seed=b, dev=dev, camera=short)
+        else:  # RANSAC votes on the predicted masks: vote with the step itself, then plant the keypoints
+            raw = eval_batch(b, b)
+            points = step({k: torch.from_numpy(v).to(dev) for k, v in raw.items()})["estimated_points"]
+            planted = plant_keypoints(raw, points.flip(-1).cpu().numpy(), dev, short)
+        # The whole step is rerun with the PnP kernel's plain version only: on a variant's voted points a 2x2
+        # voting system can be near-singular (its pixels' directions near-parallel), where a float32 rounding of
+        # the sums moves the point by pixels (casapose_c_gcu4_bilat on resnet50 at batch 32 on an H100: 97 of
+        # 4608 coordinates, up to 3.9 px, between the voting kernel and its plain version); each voting launch
+        # is held against float64 instead.
+        drive_eval_path(label, step, {b: planted}, kernels, path_kernels, t0, phase="eval paths", hold_planted=False,
+                        plain=("pnp",))
+        batch = planted[0]
+        ms = cuda_ms(lambda: step(batch), 2, warmup=1)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        chunk = f", eval_chunk {opt.eval_chunk}" if opt.eval_chunk else ""
+        say("eval paths", t0, f"{label} b={b}{chunk}: {ms:.3f} ms/step, {ms / b:.3f} ms/image; peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held before the step)")
+        del model, step, batch, planted
+        torch.cuda.empty_cache()
+
+
+def phase_bf16_inference(dev, kernels, f32_times):
+    """14. The inference step in bfloat16 (bench.py's network dtype), batch 1 and 32, beside phase 6's float32."""
+    import torch
+
+    from casapose_tpu_torch.entry import build_inference_step
+    from casapose_tpu_torch.ops.plain import plain_kernels
+    from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel
+    from casapose_tpu_torch.ops.voting_kernel import voting_accumulate
+
+    t0 = time.time()
+    step, model = build_inference_step(OBJECTS, K_POINTS, H, W, device="cuda", generator=torch.Generator().manual_seed(0),
+                                       dtype=torch.bfloat16)
+    rng = np.random.default_rng(14)
+    cases = []
+    for b in (1, 32):
+        kp3 = torch.from_numpy(rng.uniform(-0.05, 0.05, (b, OBJECTS, 1, K_POINTS, 3)).astype(np.float32)).to(dev)
+        cam = torch.tensor(CAMERA, device=dev).expand(b, 3, 3).contiguous()
+        cases.append((b, torch.from_numpy(rng.normal(size=(b, H, W, 3)).astype(np.float32)).to(dev), kp3, cam))
+    counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel}
+    for fn in counters.values():
+        fn.launches = 0
+    results = [step(img, kp3, cam, return_points=True) for _, img, kp3, cam in cases]
+    torch.cuda.synchronize()
+    for name, fn in counters.items():
+        kernels[name]["launches_by_path"]["inference step bfloat16"] = fn.launches
+    if any(fn.launches == 0 for fn in counters.values()):
+        raise AssertionError(f"a kernel of the bf16 step never launched: { {n: f.launches for n, f in counters.items()} }")
+    for (b, img, kp3, cam), (poses, coords) in zip(cases, results):
+        with plain_kernels():
+            poses_p, coords_p = step(img, kp3, cam, return_points=True)
+        if tuple(poses.shape) != (b, OBJECTS, 1, 3, 4) or not torch.isfinite(poses).all():
+            raise AssertionError(f"bf16 step b={b}: poses not finite or of the wrong shape {tuple(poses.shape)}")
+        torch.testing.assert_close(coords, coords_p, rtol=1e-4, atol=5e-3)
+        available = poses.abs().reshape(-1, 12).sum(1) > 0
+        if not torch.equal(available, poses_p.abs().reshape(-1, 12).sum(1) > 0):
+            raise AssertionError(f"bf16 step b={b}: the kernel and plain steps disagree on which objects are available")
+        times = inference_stage_ms(step, model, img, kp3, cam)
+        say("bf16", t0, f"b={b}: poses finite, {int(available.sum())} available, the same through the plain versions; "
+            f"max|d points| {(coords - coords_p).abs().max().item():.3g} px (rtol 1e-4, atol 5e-3)")
+        say("bf16", t0, f"b={b} ms per step, bfloat16 / float32 (phase 6): " + "; ".join(
+            f"{k} {v:.3f} / {f32_times[b][k]:.3f}" for k, v in times.items()) + f"; {times['step'] / b:.3f} / "
+            f"{f32_times[b]['step'] / b:.3f} ms/image")
+    say("bf16", t0, "launches on the bf16 inference path: "
+        f"{ {n: kernels[n]['launches_by_path']['inference step bfloat16'] for n in counters} }")
+
+
 def phase_lm(dev, kernels):
     """7. The LM kernel driven as its caller drives it, counted; then held against its plain version."""
     import torch
@@ -563,17 +757,145 @@ def phase_lm(dev, kernels):
     return R0, t0_, p2, p3, Kn
 
 
+def drive_eval_path(label, step, planted, kernels, path_kernels, t0, phase="eval", hold_planted=True,
+                    plain=("voting", "pnp")):
+    """Drive one eval path and hold its kernels against their plain versions; returns the outputs {b: out}.
+
+    ``planted`` is {b: (batch, planted poses)}. Every kernel count is set to
+    0 just before the path runs and read just after, under ``label``; each
+    kernel of ``path_kernels`` must have launched. Each launch is recorded
+    with its inputs (the wrapper itself still counts it). Then, per batch:
+    the whole step again through the plain versions of ``plain`` (voted
+    points rtol 1e-4 / atol 5e-3 px, losses rtol 1e-4, gt / missing / false
+    positive counts equal), each voting launch against its plain version run in
+    float64 (as phase 4), each PnP launch against its plain version on its
+    inputs (atol R 1e-4, t 2e-4, as phase 3) and every present object's
+    solve against its planted pose (the same atol; with ``hold_planted``
+    False only counted: where one voted point lies far from the others'
+    cluster, EPnP can start LM in another minimum, in the kernel and its
+    plain version alike).
+    """
+    import torch
+
+    import casapose_tpu_torch.ops.voting as voting
+    import casapose_tpu_torch.pose.epnp as epnp
+    from casapose_tpu_torch.ops.plain import plain_kernels
+    from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel, solve_pnp_plain
+    from casapose_tpu_torch.ops.voting_kernel import voting_accumulate, voting_accumulate_plain
+    from casapose_tpu_torch.pose.geometry import rodrigues, rotation_to_rvec
+
+    counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel}
+    recorded = {b: {"voting": [], "pnp": []} for b in planted}
+    current = []
+
+    def record_pnp(pts2d, pts3d, K, iterations=10):
+        out = solve_pnp_kernel(pts2d, pts3d, K, iterations)
+        current[-1]["pnp"].append((pts2d.clone(), pts3d.clone(), K.clone(), iterations) + tuple(x.clone() for x in out))
+        return out
+
+    def record_voting(raw, labels, seg_dim, k):
+        S = voting_accumulate(raw, labels, seg_dim, k)
+        current[-1]["voting"].append((raw, labels.clone(), seg_dim, k, S.clone()))
+        return S
+
+    outs = {}
+    for fn in counters.values():
+        fn.launches = 0
+    epnp.solve_pnp_kernel, voting.voting_accumulate = record_pnp, record_voting
+    try:
+        for b, (batch, _) in planted.items():
+            current.append(recorded[b])
+            outs[b] = step(batch)
+    finally:
+        epnp.solve_pnp_kernel, voting.voting_accumulate = solve_pnp_kernel, voting_accumulate
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    for name, n in launches.items():
+        kernels[name]["launches_by_path"][label] = n
+    if any(launches[n] == 0 for n in path_kernels):
+        raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+    for b, out in outs.items():
+        batch, truth = planted[b]
+        with plain_kernels(*plain):
+            plain_out = step(batch)
+        for key, v in out.items():
+            vals = v if key == "pose_stats" else [v]
+            if not all(torch.isfinite(x).all() for x in vals):
+                raise AssertionError(f"{label} b={b}: `{key}` is not finite")
+        ps, pp = [x.cpu().numpy() for x in out["pose_stats"]], [x.cpu().numpy() for x in plain_out["pose_stats"]]
+        torch.testing.assert_close(out["estimated_points"], plain_out["estimated_points"], rtol=1e-4, atol=5e-3)
+        # With hold_planted False a row may solve into another minimum in the two runs: the keypoint loss (and the
+        # total that holds it) is then reported, the mask, vertex and proxy losses held.
+        held_losses = slice(None) if hold_planted else slice(1, 4)
+        torch.testing.assert_close(out["losses"][held_losses], plain_out["losses"][held_losses], rtol=1e-4, atol=0.0)
+        for i, name in ((2, "gt"), (6, "missing"), (7, "false positive")):
+            if not np.array_equal(ps[i], pp[i]):
+                raise AssertionError(f"{label} b={b}: {name} counts differ, kernel {ps[i]} plain {pp[i]}")
+        # The voting kernel on this path, launch by launch, against float64.
+        vote_msg = "no voting launch (not on this path)"
+        if recorded[b]["voting"]:
+            worst = 0.0
+            for raw, lab, seg_dim, k, S in recorded[b]["voting"]:
+                err, allowed = voting_vs_float64(S, voting_accumulate_plain(raw.double(), lab, seg_dim, k), seg_dim, k)
+                worst = max(worst, (err / allowed).max().item())
+                Sp = voting_accumulate_plain(raw, lab, seg_dim, k)
+                kernels["voting"]["max_abs_err"] = max(kernels["voting"]["max_abs_err"], (S - Sp).abs().max().item())
+            vote_msg = (f"{len(recorded[b]['voting'])} voting launches vs float64: worst |dS| / allowed {worst:.3g}")
+        # The PnP kernel on this path, launch by launch: against its plain version on the same inputs, and every
+        # present object's row on its planted pose.
+        launches_b = recorded[b]["pnp"]
+        shapes = [tuple(r[0].shape) for r in launches_b]
+        R, t, err = (torch.cat([r[4 + i] for r in launches_b]) for i in range(3))
+        Rp, tp, ep = (torch.cat(x) for x in zip(*(solve_pnp_plain(*r[:4]) for r in launches_b)))
+        truth = truth.reshape(-1, 3, 4)
+        present = truth.abs().sum((1, 2)) > 0
+        on_truth = lambda R_, t_: (((R_ - truth[:, :, :3]).abs().amax((1, 2)) <= 1e-4)  # noqa: E731
+                                   & ((t_ - truth[:, :, 3]).abs().amax(1) <= 2e-4) & present)
+        # Rows held elementwise: all (hold_planted), else those whose plain solve recovers its planted pose; on the
+        # others the problem has several minima and the two roundings may stop in different ones (reported).
+        held = torch.ones_like(present) if hold_planted else on_truth(Rp, tp)
+        if not hold_planted and int(held.sum()) * 2 < int(present.sum()):
+            raise AssertionError(f"{label} b={b}: only {int(held.sum())} of {int(present.sum())} planted rows "
+                                 "recovered by the plain PnP: the path's problems are not well-posed enough to hold")
+        dR, dt = (R - Rp)[held].abs().max().item(), (t - tp)[held].abs().max().item()
+        if not (dR <= 1e-4 and dt <= 2e-4):
+            raise AssertionError(f"{label} b={b}: PnP kernel disagrees with its plain version on the path's inputs: "
+                                 f"|dR| {dR}, |dt| {dt}")
+        kernels["pnp"]["max_abs_err"] = max(kernels["pnp"]["max_abs_err"], dR, dt)
+        row_dR = (R - truth[:, :, :3]).abs().amax((1, 2))[present]
+        row_dt = (t - truth[:, :, 3]).abs().amax(1)[present]
+        gt_dR, gt_dt = row_dR.max().item(), row_dt.max().item()
+        recovered = int(on_truth(R, t).sum())
+        if hold_planted and not (gt_dR <= 1e-4 and gt_dt <= 2e-4):
+            raise AssertionError(f"{label} b={b}: PnP kernel missed planted poses: |dR| {gt_dR}, |dt| {gt_dt}")
+        # What the step makes of the solve: R -> rvec (the p6d output) -> R, which amplifies rounding near 180 deg.
+        trip = (rodrigues(rotation_to_rvec(R)) - rodrigues(rotation_to_rvec(Rp))).abs().amax((1, 2))
+        d_trip, worst_row = trip.max().item(), int(trip.argmax())
+        trip_deg = np.degrees(np.arccos(np.clip((R[worst_row].trace().item() - 1.0) / 2.0, -1.0, 1.0)))
+        losses = out["losses"].cpu().numpy()
+        say(phase, t0, f"{label} b={b}: outputs finite; max|d points| "
+            f"{(out['estimated_points'] - plain_out['estimated_points']).abs().max().item():.3g} px (rtol 1e-4, atol 5e-3); "
+            f"losses {np.array2string(losses, precision=6)}, max rel diff "
+            f"{((out['losses'] - plain_out['losses']).abs() / plain_out['losses'].abs().clamp(min=1e-30)).max().item():.3g} "
+            f"(rtol 1e-4); gt {ps[2].sum():.0f}, missing {ps[6].sum():.0f}, false positive {ps[7].sum():.0f} (equal); "
+            f"{vote_msg}; PnP launches {shapes}: kernel vs plain on {int(held.sum())} of {R.shape[0]} rows max|dR| "
+            f"{dR:.3g} max|dt| {dt:.3g} (atol R 1e-4, t 2e-4), planted poses recovered on {recovered} of "
+            f"{int(present.sum())} rows (plain {int(on_truth(Rp, tp).sum())}), max|dR| {gt_dR:.3g} "
+            f"max|dt| {gt_dt:.3g}, max err kernel "
+            f"{err.max().item():.3g} plain {ep.max().item():.3g}; after R -> rvec -> R max|dR| {d_trip:.3g} (rotation "
+            f"{trip_deg:.4f} deg); valid 2D {ps[0].sum():.0f}/{pp[0].sum():.0f}, 3D {ps[1].sum():.0f}/{pp[1].sum():.0f}; "
+            f"error sums 2D {ps[4].sum():.6g}/{pp[4].sum():.6g} px, 3D {ps[5].sum():.6g}/{pp[5].sum():.6g} m "
+            f"(kernel/plain, reported)")
+    say(phase, t0, f"launches on the path `{label}`: {launches}")
+    return outs
+
+
 def phase_eval(dev, kernels):
     """8. The evaluation step at full width, kernels against plain versions; launches counted per path."""
     import torch
 
-    import casapose_tpu_torch.pose.epnp as epnp
     from casapose_tpu_torch.eval import build_test_step, loss_weights_from_opt
     from casapose_tpu_torch.models.registry import get_model
-    from casapose_tpu_torch.ops.plain import plain_kernels
-    from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel, solve_pnp_plain
-    from casapose_tpu_torch.ops.voting_kernel import voting_accumulate
-    from casapose_tpu_torch.pose.geometry import rodrigues, rotation_to_rvec
 
     t0 = time.time()
     opt = eval_opt(EVAL_CHUNK)
@@ -582,78 +904,8 @@ def phase_eval(dev, kernels):
     verts, counts = eval_meshes()
     step = build_test_step(model, opt, OBJECTS, verts, counts, loss_weights_from_opt(opt))
     planted = {b: planted_eval_batch(model, opt, b, seed=b, dev=dev) for b in (1, 32)}
-    batches = {b: batch for b, (batch, _) in planted.items()}
-    counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel}
-    for fn in counters.values():
-        fn.launches = 0
-    # Each PnP kernel launch of the step, with its inputs, is recorded (the wrapper itself still counts it), so
-    # that the kernel is held against its plain version on the inputs and at the B this path gives it.
-    recorded = []
-
-    def record(pts2d, pts3d, K, iterations=10):
-        out = solve_pnp_kernel(pts2d, pts3d, K, iterations)
-        recorded[-1].append((pts2d.clone(), pts3d.clone(), K.clone(), iterations) + tuple(x.clone() for x in out))
-        return out
-
-    outs, launches = {}, {}
-    epnp.solve_pnp_kernel = record
-    try:
-        for b, batch in batches.items():
-            recorded.append([])
-            outs[b] = step(batch)
-            launches[b] = recorded[-1]
-    finally:
-        epnp.solve_pnp_kernel = solve_pnp_kernel
-    torch.cuda.synchronize()
-    for name, fn in counters.items():
-        kernels[name]["launches_by_path"]["eval step"] = fn.launches
-    if any(fn.launches == 0 for fn in counters.values()):
-        raise AssertionError(f"a kernel of the eval step never launched: { {n: f.launches for n, f in counters.items()} }")
-    for b, out in outs.items():
-        with plain_kernels():
-            plain = step(batches[b])
-        for key, v in out.items():
-            vals = v if key == "pose_stats" else [v]
-            if not all(torch.isfinite(x).all() for x in vals):
-                raise AssertionError(f"eval b={b}: `{key}` is not finite")
-        ps, pp = [x.cpu().numpy() for x in out["pose_stats"]], [x.cpu().numpy() for x in plain["pose_stats"]]
-        torch.testing.assert_close(out["estimated_points"], plain["estimated_points"], rtol=1e-4, atol=5e-3)
-        torch.testing.assert_close(out["losses"], plain["losses"], rtol=1e-4, atol=0.0)
-        for i, name in ((2, "gt"), (6, "missing"), (7, "false positive")):
-            if not np.array_equal(ps[i], pp[i]):
-                raise AssertionError(f"eval b={b}: {name} counts differ, kernel {ps[i]} plain {pp[i]}")
-        # The PnP kernel on this path, launch by launch: against its plain version on the same inputs (atol R
-        # 1e-4, t 2e-4, as phase 3), and every present object's row on its planted pose (the same atol).
-        shapes = [tuple(r[0].shape) for r in launches[b]]
-        R, t, err = (torch.cat([r[4 + i] for r in launches[b]]) for i in range(3))
-        Rp, tp, ep = (torch.cat(x) for x in zip(*(solve_pnp_plain(*r[:4]) for r in launches[b])))
-        dR, dt = (R - Rp).abs().max().item(), (t - tp).abs().max().item()
-        if not (dR <= 1e-4 and dt <= 2e-4):
-            raise AssertionError(f"eval b={b}: PnP kernel disagrees with its plain version on the path's inputs: "
-                                 f"|dR| {dR}, |dt| {dt}")
-        truth = planted[b][1].reshape(-1, 3, 4)
-        present = truth.abs().sum((1, 2)) > 0
-        gt_dR = (R - truth[:, :, :3])[present].abs().max().item()
-        gt_dt = (t - truth[:, :, 3])[present].abs().max().item()
-        if not (gt_dR <= 1e-4 and gt_dt <= 2e-4):
-            raise AssertionError(f"eval b={b}: PnP kernel missed planted poses: |dR| {gt_dR}, |dt| {gt_dt}")
-        # What the step makes of the solve: R -> rvec (the p6d output) -> R, which amplifies rounding near 180 deg.
-        trip = (rodrigues(rotation_to_rvec(R)) - rodrigues(rotation_to_rvec(Rp))).abs().amax((1, 2))
-        d_trip, worst = trip.max().item(), int(trip.argmax())
-        trip_deg = np.degrees(np.arccos(np.clip((R[worst].trace().item() - 1.0) / 2.0, -1.0, 1.0)))
-        losses = out["losses"].cpu().numpy()
-        say("eval", t0, f"b={b} (eval_chunk {EVAL_CHUNK}): outputs finite; max|d points| "
-            f"{(out['estimated_points'] - plain['estimated_points']).abs().max().item():.3g} px (rtol 1e-4, atol 5e-3); "
-            f"losses {np.array2string(losses, precision=6)}, max rel diff "
-            f"{((out['losses'] - plain['losses']).abs() / plain['losses'].abs()).max().item():.3g} (rtol 1e-4); "
-            f"gt {ps[2].sum():.0f}, missing {ps[6].sum():.0f}, false positive {ps[7].sum():.0f} (equal); PnP launches "
-            f"{shapes}: kernel vs plain max|dR| {dR:.3g} max|dt| {dt:.3g} (atol R 1e-4, t 2e-4), on {int(present.sum())} "
-            f"planted rows max|dR| {gt_dR:.3g} max|dt| {gt_dt:.3g}, max err kernel {err.max().item():.3g} plain "
-            f"{ep.max().item():.3g}; after R -> rvec -> R max|dR| {d_trip:.3g} (rotation {trip_deg:.4f} deg); valid 2D "
-            f"{ps[0].sum():.0f}/{pp[0].sum():.0f}, 3D {ps[1].sum():.0f}/{pp[1].sum():.0f}; error sums 2D "
-            f"{ps[4].sum():.6g}/{pp[4].sum():.6g} px, 3D {ps[5].sum():.6g}/{pp[5].sum():.6g} m (kernel/plain, reported)")
-    say("eval", t0, f"launches on the eval path: { {n: f.launches for n, f in counters.items()} }")
-    return model, step, batches
+    drive_eval_path("eval step", step, planted, kernels, ("voting", "pnp"), t0)
+    return model, step, {b: batch for b, (batch, _) in planted.items()}
 
 
 def phase_metrics(dev):
@@ -821,10 +1073,9 @@ def main():
     from casapose_tpu_torch.ops import _build
     from casapose_tpu_torch.ops.plain import plain_kernels
     from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel, solve_pnp_plain
-    from casapose_tpu_torch.ops.voting import class_masks, einsum_sums, filtered_labels, ls_voting
+    from casapose_tpu_torch.ops.voting import class_masks, einsum_sums, filtered_labels
     from casapose_tpu_torch.ops.voting_kernel import voting_accumulate, voting_accumulate_plain
     from casapose_tpu_torch.pose.epnp import pose_matrix_from_p6d, solve_pnp, substitute_degenerate
-    from casapose_tpu_torch.pose.evaluation import poses_pnp
 
     dev = torch.device("cuda")
     kernels = {}
@@ -977,25 +1228,13 @@ def main():
 
     # 6. timings: the step, its stages (as the step runs them: no grad, TF32 off), then each kernel
     t0 = time.time()
+    f32_times = {}
     for label, img, kp3, cam in cases:
         if label.startswith("noise"):
             b = img.shape[0]
-            iters = 10 if b == 1 else 3
-            ms = cuda_ms(lambda: step(img, kp3, cam), iters, warmup=2)
-            say("time", t0, f"step {label}: {ms:.3f} ms/step, {ms / b:.3f} ms/image")
-            with torch.no_grad(), f32_precision():
-                out = model(img)
-                seg, dirs, conf = out[..., :SEG_DIM], out[..., SEG_DIM : SEG_DIM + 2 * K_POINTS], out[..., SEG_DIM + 2 * K_POINTS :]
-                coords = ls_voting(seg, dirs, conf, K_POINTS, filter_estimates=True, raw_output=out)
-                stages = {
-                    "network": cuda_ms(lambda: model(img), iters),
-                    "class masks + CC filter": cuda_ms(lambda: filtered_labels(*class_masks(seg, torch.float32, True)), iters),
-                    "ls_voting (filter, kernel, 2x2 solve)": cuda_ms(
-                        lambda: ls_voting(seg, dirs, conf, K_POINTS, filter_estimates=True, raw_output=out), iters
-                    ),
-                    "poses_pnp": cuda_ms(lambda: poses_pnp(coords, seg, kp3, cam, OBJECTS), iters),
-                }
-            say("time", t0, f"stages {label}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+            f32_times[b] = stages = inference_stage_ms(step, model, img, kp3, cam)
+            say("time", t0, f"step {label}: {stages['step']:.3f} ms/step, {stages['step'] / b:.3f} ms/image")
+            say("time", t0, f"stages {label}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in stages.items() if k != "step"))
     _, img, kp3, cam = cases[-1]  # noise b=32: the main path's own kernel inputs
     with torch.no_grad(), f32_precision():
         out = model(img)
@@ -1050,6 +1289,9 @@ def main():
     del eval_model, eval_step, eval_batches
     torch.cuda.empty_cache()
     phase_harness()  # 11
+    phase_models(dev)  # 12
+    phase_eval_paths(dev, kernels)  # 13
+    phase_bf16_inference(dev, kernels, f32_times)  # 14
 
     meta = {
         "voting": ("casapose_tpu_torch/csrc/voting.cu", "casapose_tpu/ops/voting_kernel.py:103"),

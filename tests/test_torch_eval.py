@@ -326,6 +326,74 @@ def test_estimate_poses_and_evaluate_pose_estimates():
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _ransac_case(separated, seed=7):
+    """Two objects in two images (object 2 absent from image 2's GT, but predicted there) with direction fields to
+    the projections of planted poses, noisy; PVNet's layout (one field stack per object) when ``separated``."""
+    rng = np.random.default_rng(seed)
+    h, w = 40, 48
+    cam = np.array([[200.0, 0.0, w / 2], [0.0, 200.0, h / 2], [0.0, 0.0, 1.0]], np.float32)
+    pts3d = rng.uniform(-0.05, 0.05, (B, OC, 1, K, 3)).astype(np.float32)
+    poses_gt = np.zeros((B, OC, 1, 3, 4), np.float32)
+    poses_gt[..., :3] = Rotation.random(B * OC, random_state=8).as_matrix().reshape(B, OC, 1, 3, 3)
+    poses_gt[..., 3] = rng.uniform([-0.02, -0.02, 0.75], [0.02, 0.02, 0.85], (B, OC, 1, 3))
+    uv = np.einsum("bocij,bocvj->bocvi", poses_gt[..., :3], pts3d) + poses_gt[..., None, :, 3]
+    uv = uv @ cam.T
+    kp = (uv[..., :2] / uv[..., 2:])[:, :, 0]  # (x, y) [b, oc, K, 2]
+    labels = np.zeros((B, h, w), np.int64)
+    labels[:, 4:20, 4:22] = 1
+    labels[:, 22:38, 24:46] = 2
+    target = labels.copy()
+    target[1][target[1] == 2] = 0
+    target_seg = (target[..., None] == np.arange(SEG_DIM)).astype(np.float32)
+    output_seg = (labels[..., None] == np.arange(SEG_DIM)).astype(np.float32) * 5.0 + rng.normal(
+        scale=0.1, size=(B, h, w, SEG_DIM)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w] + 0.5
+    fields = np.zeros((B, h, w, OC, K, 2), np.float32)
+    for o in range(OC):
+        d = np.stack([kp[:, o, None, None, :, 1] - yy[None, :, :, None], kp[:, o, None, None, :, 0] - xx[None, :, :, None]], -1)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        fields[:, :, :, o] = d + rng.normal(scale=0.05, size=d.shape)
+    if separated:
+        vertex = fields.reshape(B, h, w, OC * K * 2)
+    else:
+        vertex = np.take_along_axis(fields, np.clip(labels - 1, 0, None)[..., None, None, None], 3)[:, :, :, 0]
+        vertex = vertex.reshape(B, h, w, K * 2) * (labels > 0)[..., None]
+    offsets = np.array([[0, 0, h, w, 0, 0, 0, 1.0, w, h]] * B, np.float32)
+    cams = np.broadcast_to(cam, (B, 3, 3)).copy()
+    diam = np.full((B, OC, 1, 1), 0.1, np.float32)
+    verts = rng.uniform(-0.05, 0.05, (OC, 3417, 3)).astype(np.float32)
+    counts = np.array([[60], [3417]], np.int32)
+    return [output_seg, target_seg, vertex.astype(np.float32), poses_gt, pts3d, cams, diam, offsets], verts, counts
+
+
+@pytest.mark.parametrize("separated", [True, False], ids=["pvnet_fields", "shared_fields"])
+def test_estimate_and_evaluate_poses(separated):
+    """The RANSAC evaluation, the port voting with the JAX package's own draws: voted points within 1e-3 px (the
+    refinement's float32 sums run in another order), poses atol 1e-4 (PnP down the accelerator branch in both),
+    metric counts exact, error sums rtol 1e-4 (they move with the voted points, as in the step tests)."""
+    from casapose_tpu.pose import evaluation as je
+    from casapose_tpu_torch.pose import evaluation as te
+    from tests.torch_parity import port_ransac_with_jax_draws
+
+    args, verts, counts = _ransac_case(separated)
+    kw = dict(min_num=1, ransac_rounds=2)
+    with jax_pnp_accelerator_branch():
+        want = je.estimate_and_evaluate_poses(*_j(*args), evaluation_points=_j(verts),
+                                              object_points_3d_count=_j(counts), **kw)
+    with port_ransac_with_jax_draws() as calls:
+        got = te.estimate_and_evaluate_poses(*_t(*args), evaluation_points=_t(verts), object_points_3d_count=_t(counts),
+                                             **kw)
+    assert calls
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-4, rtol=0)
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        if i in (4, 5):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[0][0].sum() >= 2 and got[0][3].sum() == 1  # 2D-valid poses; the predicted, absent object
+
+
 # ----------------------------------------------------------------- the model's gt_seg input
 
 
@@ -376,14 +444,14 @@ def _scene(n, rng):
     return img, seg, kp2d
 
 
-def _well_posed(coords, rng):
+def _well_posed(coords, rng, camera=SHORT_FOCAL):
     """keypoints3d, poses_gt: model points that random poses project exactly onto ``coords`` (y, x) through
-    SHORT_FOCAL, and those poses moved by (6, -4, 8) cm."""
+    ``camera``, and those poses moved by (6, -4, 8) cm."""
     n = coords.shape[0] * OC
     R = Rotation.random(n, random_state=7).as_matrix()
     t = np.stack([rng.uniform(-0.05, 0.05, n), rng.uniform(-0.05, 0.05, n), rng.uniform(0.75, 0.85, n)], 1)
     xy1 = np.concatenate([coords.reshape(n, K, 2)[..., ::-1], np.ones((n, K, 1))], axis=-1)
-    cam_pts = (xy1 @ np.linalg.inv(SHORT_FOCAL.astype(np.float64)).T) * rng.uniform(0.75, 0.85, (n, K, 1))
+    cam_pts = (xy1 @ np.linalg.inv(camera.astype(np.float64)).T) * rng.uniform(0.75, 0.85, (n, K, 1))
     model = np.einsum("bji,bnj->bni", R, cam_pts - t[:, None]).reshape(-1, OC, 1, K, 3)
     poses_gt = np.concatenate([R, (t + [0.06, -0.04, 0.08])[:, :, None]], -1).reshape(-1, OC, 1, 3, 4)
     return model.astype(np.float32), poses_gt.astype(np.float32)
@@ -535,7 +603,31 @@ def test_unported_options_raise(step_setup):
     from casapose_tpu_torch.utils.config import parse_config
 
     _, _, model, verts, counts = step_setup
-    for flag in (["--estimate_coords", "0"], ["--save_eval_batches", "1"], ["--quantized_inference", "int8"]):
+    for flag in (["--save_eval_batches", "1"], ["--quantized_inference", "int8"], ["--profile_dir", "prof"]):
         opt = parse_config(_step_flags() + flag)
         with pytest.raises(NotImplementedError):
             build_test_step(model, opt, OC, verts, counts, LossWeights())
+
+
+def test_least_squares_without_confidence_is_refused_as_by_jax(step_setup):
+    """``estimate_coords 1`` with ``estimate_confidence 0``: the JAX step hands ``confidence=None`` to ``ls_voting``
+    and fails in its softplus; the port refuses the combination when the step is built, and names the RANSAC
+    branch."""
+    import jax.numpy as jnp
+
+    from casapose_tpu.core.checkpoint import unflatten_params
+    from casapose_tpu.eval import build_test_step as jax_build
+    from casapose_tpu.losses.losses import LossWeights as JaxWeights
+    from casapose_tpu.utils.config import parse_config as jax_parse
+    from casapose_tpu_torch.eval import build_test_step
+    from casapose_tpu_torch.losses.losses import LossWeights
+    from casapose_tpu_torch.utils.config import parse_config
+
+    jm, flat, model, verts, counts = step_setup
+    flags = _step_flags() + ["--estimate_confidence", "0"]
+    with pytest.raises(ValueError, match="estimate_coords 0"):
+        build_test_step(model, parse_config(flags), OC, verts, counts, LossWeights())
+    step = jax_build(jm, jax_parse(flags), OC, verts, counts, JaxWeights())
+    batch = {k: jnp.asarray(v) for k, v in _batch(model, B).items()}
+    with pytest.raises(TypeError, match="logaddexp"):
+        step(unflatten_params(flat), batch)

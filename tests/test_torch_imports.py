@@ -24,7 +24,7 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
 assert not leaked, leaked
 eval_slice = {"casapose_tpu_torch." + m for m in (
     "eval", "core.checkpoint", "data.mesh", "data.ndds", "data.pipeline", "losses.losses", "ops.vectorfield",
-    "pose.bpnp", "pose.metrics", "utils.config", "utils.io")}
+    "pose.bpnp", "pose.metrics", "pose.ransac", "utils.config", "utils.io")}
 assert eval_slice <= set(names), sorted(eval_slice - set(names))
 print(len(names))
 """

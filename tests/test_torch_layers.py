@@ -180,3 +180,117 @@ def test_f32_precision_guard_turns_tf32_off_and_restores():
         assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _bn_stats(rng, ch):
+    return {"mean": rng.normal(size=ch).astype(np.float32), "var": rng.uniform(0.5, 2.0, ch).astype(np.float32)}
+
+
+def _load_bn(bn, stats):
+    import torch
+
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.from_numpy(stats["mean"]))
+        bn.running_var.copy_(torch.from_numpy(stats["var"]))
+
+
+def test_clade_hard_labels():
+    """``ClassAdaptiveNorm``: an integer label map selects the gamma/beta rows."""
+    import torch
+
+    from casapose_tpu.models.layers import ClassAdaptiveNorm as JaxNorm
+
+    from casapose_tpu_torch.models.layers import ClassAdaptiveNorm
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 6, 7, 5)).astype(np.float32)
+    labels = rng.integers(0, 3, (2, 6, 7))
+    params = {"gamma": rng.normal(size=(3, 5)).astype(np.float32), "beta": rng.normal(size=(3, 5)).astype(np.float32)}
+    stats = _bn_stats(rng, 5)
+    ref = np.asarray(JaxNorm(num_classes=3).apply({"params": params, "batch_stats": {"bn": stats}}, x, labels,
+                                                  use_running_average=True))
+    norm = ClassAdaptiveNorm(3, 5).eval()
+    with torch.no_grad():
+        norm.gamma.copy_(torch.from_numpy(params["gamma"]))
+        norm.beta.copy_(torch.from_numpy(params["beta"]))
+    _load_bn(norm.bn, stats)
+    out = norm(_nchw(x), torch.from_numpy(labels))
+    np.testing.assert_allclose(_nhwc(out), ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("learned_blend", [False, True])
+def test_clade_with_input(learned_blend):
+    """``ClassAdaptiveWeightedNormWithInput``: per-image gamma/beta [b, C, ch], optionally blended with learned ones."""
+    import torch
+
+    from casapose_tpu.models.layers import ClassAdaptiveWeightedNormWithInput as JaxNorm
+    from casapose_tpu.models.layers import hard_onehot as jax_hard_onehot
+
+    from casapose_tpu_torch.core.convert import from_jax_variables
+    from casapose_tpu_torch.models.layers import ClassAdaptiveWeightedNormWithInput
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, 6, 7, 5)).astype(np.float32)
+    onehot = np.asarray(jax_hard_onehot(_logits_with_ties(rng, h=6, w=7, c=3)))
+    gamma_in, beta_in = (rng.normal(size=(2, 3, 5)).astype(np.float32) for _ in range(2))
+    params = {}
+    if learned_blend:
+        params = {"gamma": rng.normal(size=(3, 5)).astype(np.float32), "beta": rng.normal(size=(3, 5)).astype(np.float32),
+                  "alpha_1": np.array([0.3], np.float32), "alpha_2": np.array([1.7], np.float32)}  # 1.7 clips to 1
+    stats = _bn_stats(rng, 5)
+    jm = JaxNorm(num_classes=3, learned_blend=learned_blend)
+    ref = np.asarray(jm.apply({"params": params, "batch_stats": {"bn": stats}}, x, onehot, gamma_in, beta_in,
+                              use_running_average=True))
+    norm = ClassAdaptiveWeightedNormWithInput(3, 5, learned_blend=learned_blend).eval()
+    flat = {f"params/norm/{k}": v for k, v in params.items()}
+    flat.update({f"batch_stats/norm/bn/{k}": v for k, v in stats.items()})
+    holder = torch.nn.Module()
+    holder.norm = norm
+    holder.load_state_dict(from_jax_variables(flat, holder))  # the weight bridge maps alpha_1 / alpha_2 too
+    out = norm(_nchw(x), _nchw(onehot), torch.from_numpy(gamma_in), torch.from_numpy(beta_in))
+    np.testing.assert_allclose(_nhwc(out), ref, atol=ATOL, rtol=0)
+
+
+def test_guided_bilinear_upsampling():
+    from casapose_tpu.models.layers import guided_bilinear_upsampling as jax_gbu
+    from casapose_tpu.models.layers import hard_onehot as jax_hard_onehot
+
+    from casapose_tpu_torch.models.layers import guided_bilinear_upsampling
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 6, 8, 4)).astype(np.float32)
+    seg_lo = np.asarray(jax_hard_onehot(_logits_with_ties(rng, h=6, w=8, c=3)))
+    seg_hi = np.asarray(jax_hard_onehot(_logits_with_ties(rng, h=12, w=16, c=3)))
+    ref = np.asarray(jax_gbu(x, seg_lo, seg_hi))
+    out = guided_bilinear_upsampling(_nchw(x), _nchw(seg_lo), _nchw(seg_hi))
+    np.testing.assert_allclose(_nhwc(out), ref, atol=ATOL, rtol=0)
+    # where all four candidates share the high-res label, it is plain 2x bilinear interpolation of the phase
+    same = np.ones((2, 6, 8, 1), np.float32)
+    plain = _nhwc(guided_bilinear_upsampling(_nchw(x), _nchw(same), _nchw(np.ones((2, 12, 16, 1), np.float32))))
+    np.testing.assert_allclose(plain[:, 1:-1:2, 1:-1:2], (x[:, :-1, :-1] + x[:, :-1, 1:] + x[:, 1:, :-1] + x[:, 1:, 1:]) / 4,
+                               atol=ATOL, rtol=0)
+
+
+def test_trainable_half_size():
+    """The trainable ``HalfSize`` (casapose_c): eye-initialised, and a trained matrix mixes the class channels."""
+    import jax
+    import torch
+
+    from casapose_tpu.models.layers import HalfSize as JaxHalfSize
+
+    from casapose_tpu_torch.core.convert import from_jax_variables
+    from casapose_tpu_torch.models.layers import HalfSize
+
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(2, 7, 10, 3)).astype(np.float32)
+    jm = JaxHalfSize(depth=3, trainable=True)
+    variables = jm.init(jax.random.PRNGKey(0), x)
+    port = HalfSize(3, trainable=True)
+    np.testing.assert_array_equal(port.weight.detach().numpy()[:, :, 0, 0], np.eye(3))
+    kernel = rng.normal(size=(1, 1, 3, 3)).astype(np.float32)
+    ref = np.asarray(jm.apply({"params": {"kernel": kernel}}, x))
+    holder = torch.nn.Module()
+    holder.half = port
+    holder.load_state_dict(from_jax_variables({"params/half/kernel": kernel}, holder))
+    np.testing.assert_allclose(_nhwc(port(_nchw(x))), ref, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(np.asarray(variables["params"]["kernel"])[0, 0], np.eye(3))

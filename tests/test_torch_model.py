@@ -95,11 +95,12 @@ def test_weight_bridge_raises(case, defect):
         from_jax_variables(flat, model)
 
 
-@pytest.mark.parametrize("name,base", [("casapose_c_gu", "resnet18"), ("pvnet", "resnet18"), ("casapose_c_gcu5", "resnet50")])
+@pytest.mark.parametrize("name,base", [("casapose_x", "resnet18"), ("pvnet_x", "resnet18"), ("casapose_c_gcu5", "resnet99")])
 def test_registry_refuses_what_is_not_ported(name, base):
+    """Every name and backbone of the JAX registry is ported (tests/test_torch_variants.py); others raise as there."""
     from casapose_tpu_torch.models.registry import get_model
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError if base == "resnet99" else ValueError):
         get_model(name, ver_dim=VER_DIM, seg_dim=SEG_DIM, base_model=base, device="cpu")
 
 

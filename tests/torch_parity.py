@@ -100,3 +100,52 @@ def jax_poses_pnp_accelerator_path(coords, seg, kp3, cam, no_objects):
         poses = np.asarray(evaluation.poses_pnp(coords, seg, kp3, cam, no_objects))
     assert calls, "the JAX solve_pnp did not take its Pallas branch"
     return poses
+
+
+def jax_ransac_draws(mask, vn, max_iter, round_hyp_num=512, max_num=30000, key=0):
+    """The random numbers that ``casapose_tpu/pose/ransac.py`` draws from ``PRNGKey(key)`` for ``mask``
+    [b, h, w, oc], as the port's ``draws=`` takes them (torch tensors).
+
+    The JAX function splits the key into one key per (image, class), each into
+    a candidate key (uniform noise over the pixels) and a hypothesis key (one
+    key per round, candidate indices below the pair's valid-candidate count).
+    """
+    import jax
+    import torch
+
+    mask = np.asarray(mask, np.float32)
+    b, h, w, oc = mask.shape
+    keys = np.asarray(jax.random.split(jax.random.PRNGKey(key), b * oc)).reshape(b, oc, 2)
+    noise = np.zeros((b, oc, h * w), np.float32)
+    hyps = np.zeros((b, oc, max_iter, round_hyp_num, vn, 2), np.int64)
+    n = min(max_num, h * w)
+    for i in range(b):
+        for o in range(oc):
+            k_sel, k_hyp = jax.random.split(keys[i, o])
+            noise[i, o] = np.asarray(jax.random.uniform(k_sel, (h * w,)))
+            flat = mask[i, :, :, o].reshape(-1)
+            _, idx = jax.lax.top_k(flat * 2.0 + noise[i, o], n)
+            valid_n = max(int(np.sum(flat[np.asarray(idx)])), 1)
+            for r, kr in enumerate(jax.random.split(k_hyp, max_iter)):
+                hyps[i, o, r] = np.asarray(jax.random.randint(kr, (round_hyp_num, vn, 2), 0, valid_n))
+    return {"noise": torch.from_numpy(noise), "hypotheses": torch.from_numpy(hyps)}
+
+
+@contextlib.contextmanager
+def port_ransac_with_jax_draws():
+    """Inside, the port's ``estimate_and_evaluate_poses`` votes with the draws the JAX package makes from its
+    default ``PRNGKey(0)`` (see :func:`jax_ransac_draws`), as every JAX eval step does. Yields the list of calls."""
+    from casapose_tpu_torch.pose import evaluation
+
+    calls = []
+    ransac = evaluation.ransac_voting_layer_all_masks
+
+    def with_jax_draws(mask, vertex, round_hyp_num=512, max_iter=1, max_num=30000, **kwargs):
+        calls.append(1)
+        draws = jax_ransac_draws(mask.cpu().numpy(), vertex.shape[3], max_iter, round_hyp_num, max_num)
+        return ransac(mask, vertex, round_hyp_num, max_iter=max_iter, max_num=max_num, draws=draws,
+                      **{k: v for k, v in kwargs.items() if k not in ("draws", "generator")})
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(evaluation, "ransac_voting_layer_all_masks", with_jax_draws)
+        yield calls
