@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's flax variables -> the port's state_dict.
+"""Weight bridge, both ways: the JAX package's flax variables <-> the port's state_dict.
 
 Takes ``{params, batch_stats}`` flattened to numpy arrays keyed by
 ``"collection/module/.../leaf"`` (the format of
@@ -18,7 +18,8 @@ The trainable ``HalfSize`` matrix of ``casapose_c`` is a (1, 1, d, d) HWIO
 kernel that the JAX package applies as ``x @ kernel[0, 0]``; the port keeps
 it as the equivalent 1x1 convolution weight, so the conv rule maps it.
 BatchNorm keeps the reference's eps of 2e-5 in
-``casapose_tpu_torch/models/layers.py``.
+``casapose_tpu_torch/models/layers.py``. :func:`to_jax_variables` is the
+inverse: a 1-D ``weight`` is a BatchNorm scale, any other a kernel.
 """
 
 import numpy as np
@@ -73,4 +74,31 @@ def from_jax_variables(flat, model=None):
         for k, v in expected.items():
             if tuple(v.shape) != tuple(out[k].shape):
                 raise ValueError(f"weight bridge: `{k}` has shape {tuple(out[k].shape)}, expected {tuple(v.shape)}")
+    return out
+
+
+_INVERSE = {name: key for key, name in _LEAVES.items() if name != "weight"}
+
+
+def to_jax_variables(state_dict):
+    """The inverse of :func:`from_jax_variables`: a state_dict -> ``{"params/...": array, "batch_stats/...": array}``.
+
+    Arrays are float32 numpy in the JAX layout (conv OIHW -> HWIO, dense
+    transposed).
+    """
+    out = {}
+    for name, value in state_dict.items():
+        *path, leaf = name.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and arr.ndim == 1:
+            collection, jax_leaf = "params", "scale"
+        elif (leaf, arr.ndim) == ("weight", 4):
+            collection, jax_leaf, arr = "params", "kernel", arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif (leaf, arr.ndim) == ("weight", 2):
+            collection, jax_leaf, arr = "params", "kernel", arr.T
+        elif leaf in _INVERSE:
+            collection, jax_leaf = _INVERSE[leaf]
+        else:
+            raise KeyError(f"no flax name for state_dict entry `{name}`")
+        out["/".join([collection, *path, jax_leaf])] = np.ascontiguousarray(arr)
     return out

@@ -1,18 +1,21 @@
-"""Host batch pipeline for evaluation, and the device-side batch finishing.
+"""Host batch pipeline and the device-side batch finishing, for training and evaluation.
 
-Counterpart of ``casapose_tpu/data/pipeline.py`` for the evaluation
-settings: sample indices -> [thread pool] decode + affine warp + crop +
-resize -> batch assembly -> bounded prefetch queue, then
-:func:`prepare_device_batch` on the device (image normalisation, one-hot
-target segmentation).
+Counterpart of ``casapose_tpu/data/pipeline.py``: sample indices ->
+[thread pool] decode (or the pre-decoded record cache) + affine warp + crop
++ resize -> photometric augmentation (``use_imgaug``, data/augment.py) ->
+batch assembly -> bounded prefetch queue, then :func:`prepare_device_batch`
+on the device (colour jitter when imgaug is off, normalisation, Gaussian
+noise, one-hot target segmentation).
 
 Images are decoded with cv2 where it is installed, else with Pillow, as
-the JAX package does; with neither, decoding raises. Not ported yet: the
-photometric augmentation (``use_imgaug``), the colour jitter and noise of
-training, and the pre-decoded record cache.
+the JAX package does; with neither, decoding raises.
 """
 
+import glob
+import hashlib
+import os
 import queue
+import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -27,6 +30,9 @@ try:
     from PIL import Image
 except ImportError:
     Image = None
+
+from casapose_tpu_torch.data.augment import augment_image
+from casapose_tpu_torch.data.color import random_color_jitter
 
 
 def _no_decoder(path):
@@ -87,6 +93,58 @@ def _warp_crop_resize(img, seg, meta, imagesize):
     return img, seg
 
 
+class RecordCache:
+    """Pre-decoded frame cache: one uint8 ``.npy`` per frame (image channels ++ segmentation).
+
+    After the first epoch each frame is one contiguous read instead of two
+    PNG decodes. Entries are keyed by (size, mtime) of both source files and
+    by ``params`` (every decode option that changes the stored bytes), so an
+    edited frame or another option decodes again; a frame keeps at most one
+    entry. Writes go through a temporary file and a rename, so workers can
+    share a directory.
+    """
+
+    def __init__(self, cache_dir):
+        self.dir = cache_dir
+        os.makedirs(cache_dir, exist_ok=True)
+
+    def _key(self, index, img_path, seg_path, params):
+        st_i = os.stat(img_path)
+        st_s = os.stat(seg_path)
+        h = hashlib.sha1(
+            f"{img_path}|{params}|{st_i.st_size}|{st_i.st_mtime_ns}|{st_s.st_size}|{st_s.st_mtime_ns}".encode()
+        ).hexdigest()[:12]
+        return os.path.join(self.dir, f"{index:07d}_{h}.npy")
+
+    def get(self, index, img_path, seg_path, decode, params=""):
+        """Return (img, seg); ``decode()`` supplies them on a miss (or a corrupt entry)."""
+        path = self._key(index, img_path, seg_path, params)
+        if os.path.exists(path):
+            try:
+                arr = np.load(path)
+                return np.ascontiguousarray(arr[..., :-1]), np.ascontiguousarray(arr[..., -1])
+            except (OSError, ValueError, EOFError):
+                pass  # corrupt entry: decode again
+        img, seg = decode()
+        arr = np.concatenate([img, seg[..., None]], axis=-1)
+        for stale in glob.glob(os.path.join(self.dir, f"{index:07d}_*.npy")):
+            try:
+                os.unlink(stale)
+            except OSError:
+                pass
+        fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".npy.tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.save(f, arr)
+            os.replace(tmp, path)
+        except OSError:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+        return img, seg
+
+
 def _remap_labels(seg, new_labels):
     """Raw segmentation ids -> contiguous object indices (0 = background)."""
     out = np.zeros_like(seg)
@@ -100,8 +158,9 @@ class BatchIterator:
     """Iterator over ``epochs`` epochs of a dataset with a bounded prefetch queue, fed by a producer thread."""
 
     def __init__(self, dataset, indices, epochs, batchsize, imagesize, cropratio, max_count, workers, prefetch, shuffle,
-                 seed, drop_remainder=True):
+                 seed, record_cache=None, drop_remainder=True):
         self.dataset = dataset
+        self.record_cache = record_cache
         self.epochs = epochs
         self.indices = indices
         self.batchsize = batchsize
@@ -121,10 +180,18 @@ class BatchIterator:
         ds = self.dataset
         rng = np.random.default_rng(seed)
         path, _, _, seg_path, _ = ds.imgs[index]
-        img = _decode_image(path, ds.color_input)
-        seg = _decode_seg(seg_path)
+        if self.record_cache is not None:
+            img, seg = self.record_cache.get(
+                index, path, seg_path, lambda: (_decode_image(path, ds.color_input), _decode_seg(seg_path)),
+                params=f"color={int(bool(ds.color_input))}",
+            )
+        else:
+            img = _decode_image(path, ds.color_input)
+            seg = _decode_seg(seg_path)
         meta = ds.preprocess_sample(index, self.imagesize, self.cropratio, self.max_count, rng, (img.shape[1], img.shape[0]))
         img, seg = _warp_crop_resize(img, seg, meta, self.imagesize)
+        if ds.use_imgaug:
+            img = augment_image(img, rng, color=ds.color_input)
         meta["img"] = img
         meta["seg"] = _remap_labels(seg, meta["new_labels"])[..., None]
         return meta
@@ -179,28 +246,49 @@ def make_dataset(dataset, batchsize, epochs, prefetch, imagesize, cropratio, wor
     ``drop_remainder=False`` keeps every image: the epoch ends with one short batch.
     """
     del no_objects, mirrored_strategy
-    if record_cache_dir or getattr(dataset, "record_cache_dir", None):
-        raise NotImplementedError("the record cache is not ported yet")
-    if dataset.use_imgaug:
-        raise NotImplementedError("photometric augmentation (use_imgaug) is not ported yet")
+    record_cache_dir = record_cache_dir or getattr(dataset, "record_cache_dir", None)
     n = len(dataset.imgs)
     data_size = n - n % batchsize if drop_remainder else n
     epoch_batches = data_size // batchsize if drop_remainder else -(-data_size // batchsize)
     it = BatchIterator(
         dataset, list(range(data_size)), epochs, batchsize, imagesize, cropratio, max_count=1, workers=worker or 8,
-        prefetch=prefetch or 4, shuffle=shuffle, seed=seed, drop_remainder=drop_remainder,
+        prefetch=prefetch or 4, shuffle=shuffle, seed=seed,
+        record_cache=RecordCache(record_cache_dir) if record_cache_dir else None, drop_remainder=drop_remainder,
     )
     return it, epoch_batches
 
 
-def prepare_device_batch(img_u8, labelmap, num_classes, normal=(0.5, 0.5), grayscale_to_rgb=False):
-    """Device-side batch finishing of the evaluation step.
+def prepare_device_batch(img_u8, labelmap, num_classes, generator=None, noise=0.0, brightness=0.0, contrast=0.0,
+                         saturation=0.0, hue=0.0, color_jitter=False, normal=(0.5, 0.5), grayscale_to_rgb=False,
+                         draws=None):
+    """Device-side batch finishing of the train and eval steps.
 
-    uint8 image [b, h, w, c] -> (x / 255 - m) / s, grey repeated to RGB if
-    asked; label map [b, h, w, 1] -> one-hot target segmentation
-    [b, h, w, num_classes] float32.
+    uint8 image [b, h, w, c] -> colour jitter on the RAW 0..255 scale when
+    ``color_jitter`` (data/color.py) -> (x / 255 - m) / s -> Gaussian noise
+    with ONE batch-level std ~ U(0, ``noise``), clipped to [-1, 1] -> grey
+    repeated to RGB if asked; label map [b, h, w, 1] -> one-hot target
+    segmentation [b, h, w, num_classes] float32.
+
+    The random ops run only with a source of draws, as the JAX function's run
+    only with a key: ``generator`` (a ``torch.Generator`` on the batch's
+    device), or ``draws``, a dict of the values themselves (``hue``,
+    ``saturation``, ``brightness``, ``contrast``, ``noise_std`` and
+    ``noise``, the standard-normal tensor of the image's shape), which the
+    tests fill with the JAX package's numbers.
     """
-    img = (img_u8.to(torch.float32) / 255.0 - normal[0]) / normal[1]
+    img = img_u8.to(torch.float32)
+    random = generator is not None or draws is not None
+    if color_jitter and random:
+        img = random_color_jitter(img, generator, hue=hue, saturation=saturation, brightness=brightness,
+                                  contrast=contrast, color=img.shape[-1] == 3, draws=draws)
+    img = (img / 255.0 - normal[0]) / normal[1]
+    if noise > 0 and random:
+        if draws is None:
+            std = torch.rand(1, generator=generator, device=img.device) * noise
+            gauss = torch.randn(img.shape, generator=generator, device=img.device)
+        else:
+            std, gauss = draws["noise_std"], draws["noise"]
+        img = torch.clamp(img + gauss * std, -1.0, 1.0)
     if grayscale_to_rgb and img.shape[-1] == 1:
         img = img.repeat(1, 1, 1, 3)
     labels = labelmap[..., 0].to(torch.int64)

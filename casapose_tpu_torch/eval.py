@@ -17,9 +17,12 @@ Both add the losses and the per-object sums.
 takes the flags of ``test_casapose.py`` and writes the same
 ``loss_test_eval.csv`` and ``test_summary_eval.csv`` (and the BOP pose
 files under ``--write_poses 1``). It runs on the card unless ``--device
-cpu`` is given. Not ported yet, and raising if asked for: the visual dumps,
-the record cache, int8 inference, ``--profile_dir``, a ``--matmul_precision``
-other than highest, ``.h5`` weights and orbax checkpoints.
+cpu`` is given. Weights come from the JAX package's ``.npz`` export or from
+a checkpoint of ``python -m casapose_tpu_torch.train``. Not ported yet, and
+raising if asked for: the visual dumps, int8 inference,
+``--profile_dir``, a ``--matmul_precision`` other than highest, ``.h5``
+weights (``util_scripts/convert_h5_weights.py`` converts them) and orbax
+checkpoints (the JAX package's ``save_weights_npz`` exports them).
 """
 
 import argparse
@@ -31,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from casapose_tpu_torch.core.checkpoint import load_weights_npz
+from casapose_tpu_torch.core.checkpoint import checkpoint_file, latest_checkpoint_step, load_weights_npz, restore_checkpoint
 from casapose_tpu_torch.core.device import resolve_device
 from casapose_tpu_torch.core.numerics import f32_precision
 from casapose_tpu_torch.data.pipeline import prepare_device_batch
@@ -46,7 +49,6 @@ def _check_ported(opt):
     """Raise for the options of the JAX harness that the port does not run."""
     unported = {
         "save_eval_batches (visual dumps)": bool(opt.save_eval_batches),
-        "cache_records": bool(getattr(opt, "cache_records", None)),
         "quantized_inference int8": getattr(opt, "quantized_inference", "") == "int8",
         "profile_dir": bool(getattr(opt, "profile_dir", None)),
         "matmul_precision other than highest": getattr(opt, "matmul_precision", "highest") != "highest",
@@ -193,15 +195,24 @@ def _load_weights(opt, model):
         for c in (fname + ".npz", os.path.join(frozen, fname + ".npz"), fname + ".h5", os.path.join(frozen, fname + ".h5")):
             if os.path.exists(c):
                 if not c.endswith(".npz"):
-                    raise NotImplementedError(f"{c}: .h5 weights are not ported yet; convert them to .npz")
+                    raise NotImplementedError(f"{c}: .h5 weights are not ported yet; convert them to .npz with "
+                                              "util_scripts/convert_h5_weights.py on a host with JAX and h5py")
                 n, _ = load_weights_npz(c, model)
                 print(f"loaded {n} arrays from {c}")
                 return
         raise FileNotFoundError(f"no weights found for {fname} (.npz / .h5, also under {frozen})")
     if opt.net:
         ckpt = os.path.join(opt.outf, opt.net)
-        if os.path.isdir(ckpt) and any(d.startswith("step_") for d in os.listdir(ckpt)):
-            raise NotImplementedError(f"{ckpt}: orbax checkpoints are not ported yet; export the weights as .npz")
+        step = latest_checkpoint_step(ckpt)
+        if step is None:
+            return
+        if checkpoint_file(ckpt, step) is None:
+            raise NotImplementedError(
+                f"{ckpt}/step_{step}: an orbax checkpoint of the JAX package cannot be read here; export its weights "
+                "with the JAX package's save_weights_npz and load the .npz (--load_h5_weights 1), or evaluate a "
+                "checkpoint that python -m casapose_tpu_torch.train wrote")
+        restore_checkpoint(ckpt, model, step=step)
+        print(f"restored checkpoint {ckpt}/step_{step}")
 
 
 def run_evaluation(opt, device="cuda"):
@@ -224,6 +235,8 @@ def run_evaluation(opt, device="cuda"):
         random_translation=(0, 0), random_rotation=0, random_crop=False, use_validation_split=use_split,
         train_validation_split=opt.train_validation_split, separated_vectorfields=opt.modelname == "pvnet",
         wxyz_quaterion_input=opt.datatest_wxyz_quaterion,
+        # Off unless --cache_records 1, as in the JAX harness: one pass over a test split gains nothing from it.
+        record_cache_dir=os.path.join(opt.outf, "record_cache", "eval") if getattr(opt, "cache_records", None) else None,
     )
     B = max(int(getattr(opt, "batchsize_test", 1)), 1)
     testingdata, test_batches = test_dataset.generate_dataset(

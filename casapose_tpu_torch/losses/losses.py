@@ -1,10 +1,13 @@
-"""Loss values of the evaluation step (forward only).
+"""Training and evaluation losses, differentiable as the JAX package's.
 
 Counterpart of ``casapose_tpu/losses/losses.py``: masked smooth-L1 on the
 direction fields, the proxy voting loss and its per-object distances, the
-keypoint reprojection loss (with on-device pose estimation) and the
-composite loss of the train / test scripts. Gradients, and the BPnP
-backward they need, belong to the training slice.
+keypoint reprojection loss (with differentiable pose estimation through
+``pose/bpnp.py``) and the composite loss of the train / test scripts. Every
+``stop_gradient`` of the JAX functions is a ``.detach()`` here, the
+zero-safe helpers double-``where`` their operand, and the norms take
+sqrt(sum(x^2)) as JAX does, so gradients agree where the JAX ones are
+finite (tests/test_torch_train_grads.py).
 """
 
 import dataclasses

@@ -57,7 +57,7 @@ class VariantSpec:
     """Whole-model configuration distinguishing the zoo variants (see the JAX package's fields)."""
 
     decoder_params: Tuple[DecoderParams, ...]
-    stop_gradient_mask: bool = True  # False only for casapose_c; no gradient flows at inference
+    stop_gradient_mask: bool = True  # False only for casapose_c; the hard mask carries no gradient either way
     halfsize_trainable: bool = False  # True only for casapose_c
     decoder2_skip_connections: bool = True  # False for casapose_c_gcu5_sw1
     shared_reuse_with_mask: bool = True  # False: the generic builder (casapose_custom with decoder_params)
@@ -69,6 +69,11 @@ def _skip_channels(backbone):
     """Channels of the features the decoders consume, in decoder order: [x32s, x8s, x4s, x2s, img]."""
     x2s, x4s, x8s, _, x32s = backbone.feature_channels
     return (x32s, x8s, x4s, x2s, 3)
+
+
+def _at_least_f32(x):
+    """A bf16 output as float32 (the JAX models' output dtype); float32 and float64 unchanged."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _activation(h, i):
@@ -83,7 +88,7 @@ def _decoder_inputs(skip_channels, dims, i, skips=True):
 
 
 class CASAPoseModel(nn.Module):
-    """Twin-decoder CASAPose network, inference only.
+    """Twin-decoder CASAPose network.
 
     ``forward(img [b, h, w, 3], gt_seg=None)``: ``gt_seg`` [b, h, w, seg_dim]
     (one-hot GT, the ``train_vectors_with_ground_truth`` mode) replaces the
@@ -151,7 +156,7 @@ class CASAPoseModel(nn.Module):
                 h = getattr(self, f"pv_block_{i + 1}_conv2d")(inp)
             h = _activation(getattr(self, f"pv_block_{i + 1}_bn")(h), i)
             x = resize_bilinear_2x(h) if 0 < i < 4 else h
-        seg_logits = self.pv_final_conv_segmentation(x).float()
+        seg_logits = _at_least_f32(self.pv_final_conv_segmentation(x))
 
         x_mask = hard_onehot(seg_logits if gt_seg is None else gt_seg.permute(0, 3, 1, 2), dim=1)
         if spec.pvnet:
@@ -191,7 +196,7 @@ class CASAPoseModel(nn.Module):
             if 0 < i < 4:
                 h = self._upsample(h, dp, seg_masks[i], seg_masks[i + 1])
             y = h
-        vertex = self.pv_final_conv_vertex(y).float()
+        vertex = _at_least_f32(self.pv_final_conv_vertex(y))
         return self._assemble(seg_logits, vertex, x_mask)
 
     @staticmethod
@@ -242,7 +247,7 @@ class PVNetModel(nn.Module):
             inp = skips[0] if i == 0 else torch.cat([x, skips[i]], dim=1)
             h = _activation(getattr(self, f"pv_block_{i + 1}_bn")(getattr(self, f"pv_block_{i + 1}_conv2d")(inp)), i)
             x = resize_bilinear_2x(h) if 0 < i < 4 else h
-        out = self.pv_final_conv(x).float()
+        out = _at_least_f32(self.pv_final_conv(x))
         if self.output_labelmap:
             labels = torch.arange(self.seg_dim, dtype=out.dtype, device=out.device).view(1, -1, 1, 1)
             first = torch.sum(hard_onehot(out[:, : self.seg_dim], dim=1) * labels, dim=1, keepdim=True)

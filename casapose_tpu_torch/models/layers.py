@@ -1,4 +1,4 @@
-"""CASAPose's class-aware layers in PyTorch (inference).
+"""CASAPose's class-aware layers in PyTorch.
 
 Counterpart of ``casapose_tpu/models/layers.py``. Everything here works on
 NCHW tensors: the model converts from the JAX package's NHWC layout at its
@@ -27,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 2e-5
+BN_MOMENTUM = 0.99
 
 _OFFSETS_3X3 = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 
@@ -44,13 +45,19 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with the reference's eps, in flax's operation order.
+    """BatchNorm with the reference's eps and momentum, in flax's operation order.
 
     ``center``/``scale`` select the bias and scale parameters, as flax's
     ``use_bias``/``use_scale`` do. ``dtype`` is the result's dtype; without
     one it is the input's, promoted with the parameters' (flax's rule).
-    Running statistics are buffers named as torch names them. Batch
-    statistics (training) are not ported yet.
+    Running statistics are buffers named as torch names them.
+
+    In training mode (``module.train()``) it normalises with the batch
+    statistics as flax 0.12 computes them: in float32 whatever the input's
+    dtype, the mean and the *fast* variance ``E[x^2] - E[x]^2`` clipped at 0,
+    the biased variance in the normalisation and in the running update
+    ``ra = 0.99 * ra + 0.01 * batch``. The statistics are plain tensor ops,
+    so gradients flow through the mean and the variance as JAX's do.
     """
 
     def __init__(self, num_features, center=True, scale=True, dtype=None):
@@ -62,13 +69,20 @@ class BatchNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError("casapose_tpu_torch ports inference only; call model.eval()")
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + BN_EPS)
+        if self.training:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp(torch.mean(xf * xf, dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x - self.running_mean.view(shape)) * mul.view(shape)
+        y = (x - mean.view(shape)) * mul.view(shape)
         if self.bias is not None:
             y = y + self.bias.view(shape)
         has_params = self.weight is not None or self.bias is not None

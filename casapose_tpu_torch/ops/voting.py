@@ -16,7 +16,8 @@ Two branches compute the sums S[b, o, k, 6] = sum w*[a, b, d, qy, qx, 1]:
   * on CUDA with ``raw_output`` (inference), the hand-written voting kernel
     (ops/voting_kernel.py) reads the raw network output and the filtered
     label map once;
-  * otherwise the einsum form of the JAX package's default ``multi`` path.
+  * otherwise the einsum form of the JAX package's default ``multi`` path,
+    the differentiable one that the train step's keypoint loss takes.
 Both normalise by the weight mass and solve the 2x2 system in closed form.
 """
 
@@ -90,7 +91,7 @@ def _solve_sums(S, h):
     """S [b, oc, k, 6] -> voted points [b, oc, k, 2] (y, x), scaled by h."""
     mass = torch.clamp(S[..., 5], min=1e-20)
     py, px = _pinv_2x2_solve(S[..., 0] / mass, S[..., 1] / mass, S[..., 2] / mass, S[..., 3] / mass, S[..., 4] / mass)
-    return torch.stack([py, px], dim=-1).to(torch.float32) * float(h)
+    return torch.stack([py, px], dim=-1).to(torch.promote_types(S.dtype, torch.float32)) * float(h)
 
 
 def einsum_sums(hot, directions, weights, sigmoid_weights):
@@ -100,7 +101,9 @@ def einsum_sums(hot, directions, weights, sigmoid_weights):
     dtype = directions.dtype
     wgt = torch.sigmoid(weights) if sigmoid_weights else torch.logaddexp(weights, torch.zeros_like(weights))
     n = directions.reshape(b, h, w, k, 2)
-    n = divide_no_nan(n, torch.linalg.vector_norm(n, dim=-1, keepdim=True))
+    # sqrt(sum(n^2)) as jnp.linalg.norm computes it: the same value, and the same non-finite gradient where a
+    # predicted direction is exactly zero (ROADMAP section 3).
+    n = divide_no_nan(n, torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True)))
     ny, nx = n[..., 0], n[..., 1]
     a = 1.0 - ny * ny
     bb = -ny * nx

@@ -76,7 +76,26 @@ Phases, one line each with its seconds:
      compute_dtype bfloat16 at batch 32, eval_chunk 8;
  14. bf16: the inference step with the bfloat16 network (bench.py's dtype)
      at batch 1 and 32, its kernels counted and held as in phase 5, its
-     stages timed as in phase 6 and printed beside phase 6's float32.
+     stages timed as in phase 6 and printed beside phase 6's float32;
+ 15. train: the configs/config_8.ini train step (casapose_c_gcu5, 448x448,
+     8 objects, 9 keypoints, batch-statistics BatchNorm, AdamTF) at float32
+     batch 4, bfloat16 batch 8 (the JAX bench's shape) and float32 batch 8,
+     30 steps each on one seeded batch: the total loss must fall and every
+     gradient be finite, the bf16 loss stay within its band of the float32
+     run's; step ms, ms/image, the forward / backward / optimizer split
+     (CUDA events) and peak memory;
+ 16. bpnp: the train step with use_bpnp_reprojection_loss 1 at B = 32 (batch
+     4 x 8 objects) on planted, well-posed problems (each object 60 pixels
+     scattered over the image, so that its votes spread; a 128-px focal
+     length): the PnP launch of its first step (the BPnP forward) against
+     its plain version (atol R 1e-4, t 2e-4) on the rows whose plain solve
+     finds the planted pose, the BPnP input gradients at the kernel's
+     solutions against those at the plain version's (rtol 1e-3, rows under
+     172 degrees), the implicit-function backward timed;
+ 17. train harness: run_training (python -m casapose_tpu_torch.train's
+     driver) on a written 480x640, 8-object scene at 448x448 crops: 2 epochs
+     with pose validation (the PnP kernel) and a checkpoint each, then a
+     resume from step_2 for a third; the harness's own lines and img/s.
 Then a "kernels" JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1061,6 +1080,391 @@ def phase_harness():
             + " | ".join(tail) + f"; summary row: {summary[1]}")
 
 
+TRAIN_SIZE = 448  # configs/config_8.ini: 448x448 crops of the 480x640 scenes
+TRAIN_STEPS = 30
+# Phase 16: each object is SCATTER_PX pixels scattered over the image, so its votes spread over 28-99 px, and the
+# camera has a 128-px focal length (as phase 13's). On the CPU at 448x448 the plain PnP then finds all 32 planted
+# poses, and the implicit-function VJP moves by 9e-5 of its max for a 1e-6 change of the pose (3e-4 through 572 px).
+SCATTER_PX = 60  # over 50, so that every object passes the keypoint loss's pixel-count filter
+SHORT_FOCAL = 128.0
+
+
+def count_launches():
+    """The three kernel wrappers, whose ``launches`` counts every launch of their kernel."""
+    from casapose_tpu_torch.ops.pnp_kernel import lm_refine, solve_pnp_kernel
+    from casapose_tpu_torch.ops.voting_kernel import voting_accumulate
+
+    return {"voting": voting_accumulate, "pnp": solve_pnp_kernel, "lm_refine": lm_refine}
+
+
+def train_batch(b, seed, size=None, scatter=0, focal=572.0):
+    """A training batch in the loader's format (__graft_entry__.py::make_synthetic_batch, copied: random dense
+    labels). With ``scatter`` each of the 8 objects is instead that many pixels scattered over the whole image: the
+    random network's votes for an object's keypoints then spread over tens of pixels (within 1-3 px of each other on
+    dense labels or compact blocks), and PnP problems planted on them are well-conditioned."""
+    size = size or TRAIN_SIZE
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, OBJECTS + 1, (b, size, size, 1)).astype(np.uint8)
+    if scatter:
+        labels[:] = 0
+        for i in range(b):
+            flat = rng.choice(size * size, OBJECTS * scatter, replace=False)
+            labels[i, flat // size, flat % size, 0] = np.repeat(np.arange(1, OBJECTS + 1), scatter)
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+    return {
+        "img": rng.integers(0, 255, (b, size, size, 3)).astype(np.uint8),
+        "seg": labels,
+        "keypoints2d": f32(rng.uniform(0, size, (b, OBJECTS, 1, K_POINTS, 2))),
+        "keypoints3d": f32(rng.uniform(-0.05, 0.05, (b, OBJECTS, 1, K_POINTS, 3))),
+        "camera": f32(np.tile(np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]]), (b, 1, 1))),
+        "diameters": f32(np.full((b, OBJECTS, 1, 1), 0.1)),
+        "offsets": f32(np.tile(np.array([0, 0, size, size, 0, 0, 0, 1.0, size, size]), (b, 1))),
+        "cuboid3d": f32(np.zeros((b, OBJECTS, 1, 8, 3))),
+        "poses_gt": f32(np.tile(np.concatenate([np.eye(3), [[0], [0], [0.8]]], axis=1), (b, OBJECTS, 1, 1, 1))),
+        "pixel_gt_count": f32(np.full((b, OBJECTS, 1, 1), 100)),
+    }
+
+
+def train_opt(*flags):
+    """The flagship training config (configs/config_8.ini) with any further flags."""
+    from casapose_tpu_torch.utils.config import parse_config
+
+    return parse_config(["-c", os.path.join(ROOT, "configs", "config_8.ini"), "--objects_to_copy_list", "",
+                         "--outf", "chip_smoke/unused", *flags])
+
+
+def train_setup(opt, dev, dtype="float32", seed=0, batches=1000):
+    """(model, AdamTF, StepConfig, LossWeights) as run_training builds them for ``opt``, weights from ``seed``."""
+    import torch
+
+    from casapose_tpu_torch.core.optimizer import AdamTF
+    from casapose_tpu_torch.losses.schedules import LossWeightHandler, make_lr_schedule
+    from casapose_tpu_torch.models.registry import get_model
+    from casapose_tpu_torch.train import step_config_from_opt
+
+    model = get_model("casapose_c_gcu5", ver_dim=3 * K_POINTS, seg_dim=SEG_DIM, device=dev, dtype=dtype,
+                      generator=torch.Generator().manual_seed(seed))
+    optimizer = AdamTF(model.parameters(), make_lr_schedule(opt.lr, opt.lr_decay, opt.lr_epochs, opt.lr_epochs_start,
+                                                            opt.lr_epochs_steps, batches))
+    lw = LossWeightHandler(mask_loss_weight=opt.mask_loss_weight, vertex_loss_weight=opt.vertex_loss_weight,
+                           proxy_loss_weight=opt.proxy_loss_weight, kp_loss_weight=opt.keypoint_loss_weight,
+                           filter_vertex_with_segmentation=opt.filter_vertex_with_segmentation,
+                           filter_high_proxy_errors=opt.filter_high_proxy_errors).as_loss_weights()
+    return model, optimizer, step_config_from_opt(opt, OBJECTS), lw
+
+
+def profile_step(fn, iters, top=8):
+    """torch.profiler over ``iters`` calls of ``fn()`` after one warm-up call: (device-busy ms per call from the
+    kernels' times, wall ms per call, the ``top`` kernels and the ``top`` operators by device time per call, each
+    as (name, ms, launches per call))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.time() - t) * 1e3 / iters
+    dev_time = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))  # noqa: E731
+    events = [e for e in prof.key_averages() if dev_time(e) > 0]
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_time(e) for e in on_device) / 1e3 / iters
+    rank = lambda es: [(e.key[:60], dev_time(e) / 1e3 / iters, e.count // iters)  # noqa: E731
+                       for e in sorted(es, key=dev_time, reverse=True)[:top]]
+    return busy, wall, rank(on_device), rank(ops)
+
+
+def train_step_split_ms(model, optimizer, cfg, lw, batch, gen, n):
+    """ms of forward (+ losses and BatchNorm statistics), backward and optimizer, CUDA events around each part of
+    ``n`` steps run as build_train_step runs them."""
+    import torch
+
+    from casapose_tpu_torch.core.numerics import f32_precision
+    from casapose_tpu_torch.train import forward_and_loss
+
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n)]
+    for e in ev:
+        e[0].record()
+        optimizer.zero_grad(set_to_none=True)
+        with f32_precision():
+            losses, _ = forward_and_loss(model, batch, cfg, lw, train=True, generator=gen)
+            e[1].record()
+            losses[0].backward()
+            e[2].record()
+            optimizer.step()
+        e[3].record()
+    torch.cuda.synchronize()
+    parts = np.array([[e[i].elapsed_time(e[i + 1]) for i in range(3)] for e in ev])
+    return dict(zip(("forward", "backward", "optimizer"), parts.mean(0)))
+
+
+def phase_train_steps(dev, kernels):
+    """15. The config_8 train step at full width: float32 batch 4, bf16 batch 8 (the JAX bench's shape) and float32
+    batch 8 (the bf16 run's yardstick), TRAIN_STEPS steps each on one seeded batch."""
+    import torch
+
+    from casapose_tpu_torch.train import build_train_step, device_batch
+
+    t0 = time.time()
+    opt = train_opt()
+    counters = count_launches()
+    results = {}
+    for label, dtype, b in (("train step f32 b4", "float32", 4), ("train step bf16 b8", "bfloat16", 8),
+                            ("train step f32 b8", "float32", 8)):
+        model, optimizer, cfg, lw = train_setup(opt, dev, dtype)
+        step = build_train_step(model, optimizer, cfg, lw)
+        batch = device_batch(train_batch(b, seed=0), dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        losses = torch.stack([step(batch, gen) for _ in range(TRAIN_STEPS)]).cpu().numpy()
+        for name, fn in counters.items():
+            kernels[name]["launches_by_path"][label] = fn.launches
+        peak = torch.cuda.max_memory_allocated()
+        bad = [n for n, p in model.named_parameters() if p.grad is not None and not torch.isfinite(p.grad).all()]
+        if bad or not np.isfinite(losses).all():
+            raise AssertionError(f"{label}: non-finite gradients {bad[:5]} or losses {losses[~np.isfinite(losses)]}")
+        if not losses[-1, 0] < losses[0, 0]:
+            raise AssertionError(f"{label}: the total loss did not fall over {TRAIN_STEPS} steps: {losses[:, 0]}")
+        step_ms = cuda_ms(lambda: step(batch, gen), 10, warmup=0)
+        split = train_step_split_ms(model, optimizer, cfg, lw, batch, gen, 5)
+        if label != "train step f32 b8":
+            busy, wall, top_kernels, top_ops = profile_step(lambda: step(batch, gen), 3)
+            say("train", t0, f"{label} under torch.profiler: device busy {busy:.3f} of {wall:.3f} ms per step "
+                f"({1 - busy / wall:.1%} idle); top kernels (ms per step, launches): "
+                + "; ".join(f"{k} {ms:.3f} x{n}" for k, ms, n in top_kernels) + "; top operators by the device "
+                "time of the kernels they launch: " + "; ".join(f"{k} {ms:.3f} x{n}" for k, ms, n in top_ops))
+        results[label] = {"losses": losses, "step_ms": step_ms}
+        say("train", t0, f"{label} ({TRAIN_SIZE}x{TRAIN_SIZE}, config_8): total loss {losses[0, 0]:.5f} -> "
+            f"{losses[-1, 0]:.5f} over {TRAIN_STEPS} steps (mask {losses[0, 1]:.4f} -> {losses[-1, 1]:.4f}, vertex "
+            f"{losses[0, 2]:.4f} -> {losses[-1, 2]:.4f}, proxy {losses[0, 3]:.4f} -> {losses[-1, 3]:.4f}, keypoint "
+            f"{losses[0, 4]:.4f} -> {losses[-1, 4]:.4f}); gradients finite; step {step_ms:.3f} ms, "
+            f"{step_ms / b:.3f} ms/image; split " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+            + f"; peak memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above model + batch); "
+            f"launches {dict((n, fn.launches) for n, fn in counters.items())}")
+        del model, optimizer, step, batch
+        torch.cuda.empty_cache()
+    # bf16 against its own float32 run at the same batch: the first step's total loss within 3% (the same weights,
+    # one batch), the mean of the last 5 within 15% (30 Adam steps apart in two roundings).
+    lb, lf = results["train step bf16 b8"]["losses"][:, 0], results["train step f32 b8"]["losses"][:, 0]
+    first, last = abs(lb[0] - lf[0]) / lf[0], abs(lb[-5:].mean() - lf[-5:].mean()) / lf[-5:].mean()
+    if not (first <= 0.03 and last <= 0.15):
+        raise AssertionError(f"bf16 loss left its band around the float32 run: first step {first:.3%}, last 5 {last:.3%}")
+    say("train", t0, f"bf16 b8 against f32 b8: first-step total loss {lb[0]:.5f} / {lf[0]:.5f} ({first:.3%}, band 3%), "
+        f"mean of the last 5 {lb[-5:].mean():.5f} / {lf[-5:].mean():.5f} ({last:.3%}, band 15%); per image bf16 "
+        f"{results['train step bf16 b8']['step_ms'] / 8:.3f} ms, f32 {results['train step f32 b8']['step_ms'] / 8:.3f} ms")
+
+
+def plant_train_keypoints(batch, coords, seed=5, noise_px=0.0, depth=(0.75, 0.85)):
+    """tests/torch_parity.py::plant_train_keypoints: each object's model keypoints where a random pose projects them
+    within N(0, noise_px) pixels of its voted points [b, oc, k, 2] (y, x), through the batch's camera. Phase 16
+    plants exactly (the default), so that a solve that finds the planted pose has found the minimum; the CPU tests
+    add 0.05 px, for a reprojection residual above rounding. Returns (batch, planted poses [b * oc, 3, 4])."""
+    rng = np.random.default_rng(seed)
+    b = coords.shape[0]
+    n = b * OBJECTS
+    K = batch["camera"][0].astype(np.float64)
+    R = random_rotations(rng, n)
+    t = np.stack([rng.uniform(-0.05, 0.05, n), rng.uniform(-0.05, 0.05, n), rng.uniform(0.75, 0.85, n)], 1)
+    xy = coords.reshape(n, K_POINTS, 2)[..., ::-1].astype(np.float64) + rng.normal(0.0, noise_px, (n, K_POINTS, 2))
+    cam_pts = (np.concatenate([xy, np.ones((n, K_POINTS, 1))], -1) @ np.linalg.inv(K).T) * rng.uniform(
+        *depth, (n, K_POINTS, 1))
+    model_pts = np.einsum("bji,bnj->bni", R, cam_pts - t[:, None])
+    t_gt = t + [0.06, -0.04, 0.08]
+    uvw = (np.einsum("nij,nkj->nki", R, model_pts) + t_gt[:, None]) @ K.T
+    out = dict(batch)
+    out["keypoints3d"] = model_pts.reshape(b, OBJECTS, 1, K_POINTS, 3).astype(np.float32)
+    out["poses_gt"] = np.concatenate([R, t_gt[:, :, None]], -1).reshape(b, OBJECTS, 1, 3, 4).astype(np.float32)
+    out["keypoints2d"] = (uvw[..., :2] / uvw[..., 2:])[..., ::-1].reshape(b, OBJECTS, 1, K_POINTS, 2).astype(np.float32)
+    return out, np.concatenate([R, t[:, :, None]], -1).astype(np.float32)
+
+
+def phase_bpnp(dev, kernels):
+    """16. The BPnP train step (use_bpnp_reprojection_loss 1) at B = 32 on planted problems: each PnP launch against
+    its plain version, the BPnP input gradients against the plain PnP's, the backward timed."""
+    import torch
+
+    import casapose_tpu_torch.losses.losses as losses_mod
+    import casapose_tpu_torch.pose.epnp as epnp
+    from casapose_tpu_torch.core.numerics import f32_precision
+    from casapose_tpu_torch.data.pipeline import prepare_device_batch
+    from casapose_tpu_torch.ops.plain import plain_kernels
+    from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel, solve_pnp_plain
+    from casapose_tpu_torch.ops.voting import ls_voting
+    from casapose_tpu_torch.pose.bpnp import bpnp_pose, ift_vjp
+    from casapose_tpu_torch.train import build_train_step, device_batch, forward_and_loss
+
+    t0 = time.time()
+    opt = train_opt("--use_bpnp_reprojection_loss", "1")
+    model, optimizer, cfg, lw = train_setup(opt, dev)
+    host = train_batch(4, seed=1, scatter=SCATTER_PX, focal=SHORT_FOCAL)
+    batch = device_batch(host, dev)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad(), f32_precision():  # the points the train step votes (batch-statistics BatchNorm)
+        model.train()
+        img, tseg = prepare_device_batch(batch["img"], batch["seg"], SEG_DIM)
+        out = model(img, tseg)
+        coords = ls_voting(tseg, out[..., SEG_DIM : SEG_DIM + 2 * K_POINTS], out[..., SEG_DIM + 2 * K_POINTS :],
+                           num_points=K_POINTS).double().cpu().numpy()
+    model.load_state_dict(initial)  # undo that pass's running-statistics update
+    host, truth = plant_train_keypoints(host, coords)
+    batch = device_batch(host, dev)
+    truth = torch.from_numpy(truth).to(dev)
+    spread = coords.reshape(-1, K_POINTS, 2).std(axis=1).max(axis=1)  # px, per object
+
+    pnp_calls, bpnp_calls = [], []
+
+    def record_pnp(pts2d, pts3d, K, iterations=10):
+        out = solve_pnp_kernel(pts2d, pts3d, K, iterations)
+        pnp_calls.append((pts2d.clone(), pts3d.clone(), K.clone(), iterations) + tuple(x.clone() for x in out))
+        return out
+
+    def record_bpnp(pts2d, pts3d, K):
+        bpnp_calls.append((pts2d.detach().clone(), pts3d.detach().clone(), K.detach().clone()))
+        return bpnp_pose(pts2d, pts3d, K)
+
+    # The step's losses, BPnP forward through the kernel and through its plain version, before any update moves the
+    # votes away from the planted problems: the mask, vertex and proxy losses held (rtol 1e-4), the keypoint loss
+    # (and the total that holds it) reported: it measures the two solves' poses in pixels, which are held row by row
+    # below at the PnP tolerances (a 1e-6 rotation difference moves its pixels by ~1e-4 relative).
+    with torch.no_grad(), f32_precision():
+        fwd_losses = torch.stack(forward_and_loss(model, batch, cfg, lw, train=True)[0]).cpu().numpy()
+        with plain_kernels("pnp"):
+            fwd_plain = torch.stack(forward_and_loss(model, batch, cfg, lw, train=True)[0]).cpu().numpy()
+    np.testing.assert_allclose(fwd_losses[1:4], fwd_plain[1:4], rtol=1e-4, atol=0.0, err_msg="bpnp train-step losses")
+    model.load_state_dict(initial)
+
+    counters = count_launches()
+    step = build_train_step(model, optimizer, cfg, lw)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for fn in counters.values():
+        fn.launches = 0
+    epnp.solve_pnp_kernel, losses_mod.bpnp_pose = record_pnp, record_bpnp
+    try:  # one step without noise: its votes are the planted ones
+        losses = step(batch).cpu().numpy()
+    finally:
+        epnp.solve_pnp_kernel, losses_mod.bpnp_pose = solve_pnp_kernel, bpnp_pose
+    torch.cuda.synchronize()
+    for name, fn in counters.items():
+        kernels[name]["launches_by_path"]["bpnp train step"] = fn.launches
+    if counters["pnp"].launches == 0 or not bpnp_calls:
+        raise AssertionError(f"bpnp train step: the PnP kernel never launched: {counters['pnp'].launches}")
+    if not np.isfinite(losses).all() or any(p.grad is not None and not torch.isfinite(p.grad).all()
+                                            for p in model.parameters()):
+        raise AssertionError(f"bpnp train step: non-finite losses {losses} or gradients")
+    # Each PnP launch against its plain version on the same inputs (atol R 1e-4, t 2e-4, as phase 3), on the rows
+    # whose plain solve finds the planted pose (at least half of them); the kernel's own recoveries are counted.
+    R, t = (torch.cat([c[4 + i] for c in pnp_calls]) for i in range(2))
+    Rp, tp = (torch.cat(x) for x in list(zip(*(solve_pnp_plain(*c[:4]) for c in pnp_calls)))[:2])
+    truth_all = truth.repeat(len(pnp_calls), 1, 1)
+    on_truth = lambda R_, t_: (((R_ - truth_all[:, :, :3]).abs().amax((1, 2)) <= 1e-4)  # noqa: E731
+                               & ((t_ - truth_all[:, :, 3]).abs().amax(1) <= 2e-4))
+    held = on_truth(Rp, tp)
+    if int(held.sum()) * 2 < held.numel():
+        raise AssertionError(f"bpnp train step: the plain PnP found only {int(held.sum())} of {held.numel()} planted "
+                             "poses: the problems are not well-posed enough to hold")
+    dR, dt = (R - Rp)[held].abs().max().item(), (t - tp)[held].abs().max().item()
+    if not (dR <= 1e-4 and dt <= 2e-4):
+        raise AssertionError(f"bpnp train step: PnP kernel disagrees with its plain version: |dR| {dR}, |dt| {dt}")
+    kernels["pnp"]["max_abs_err"] = max(kernels["pnp"]["max_abs_err"], dR, dt)
+    # The BPnP input gradients (the implicit-function VJP) at the kernel's solutions against those at the plain
+    # version's, for one seeded upstream gradient, rtol 1e-3 of each part's max, on the held rows whose rotation is
+    # under 172 degrees: the VJP is taken at p6d = [rvec | t], and the reference's R -> rvec conversion turns solves
+    # 1e-6 apart into rvecs far apart near 180 degrees (ROADMAP.md section 3).
+    x, z, K = bpnp_calls[0]
+    g = torch.from_numpy(np.random.default_rng(2).normal(size=(x.shape[0], 6)).astype(np.float32)).to(dev)
+    with torch.no_grad(), f32_precision():
+        p6d = bpnp_pose(x, z, K)
+        with plain_kernels("pnp"):
+            p6d_plain = bpnp_pose(x, z, K)
+        trace = truth[:, 0, 0] + truth[:, 1, 1] + truth[:, 2, 2]
+        angle = torch.arccos(torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0))
+        held0 = held[: x.shape[0]] & (angle < np.radians(172.0))
+        worst = worst_all = 0.0
+        for gk, gp in zip(ift_vjp(g, p6d, x, z, K), ift_vjp(g, p6d_plain, x, z, K)):
+            rel = lambda rows: ((gk - gp)[rows].abs().max() / gp[rows].abs().max().clamp(min=1e-30)).item()  # noqa: E731
+            worst, worst_all = max(worst, rel(held0)), max(worst_all, rel(held[: x.shape[0]]))
+        dp6d = (p6d - p6d_plain)[held0].abs().max().item()
+    if worst > 1e-3:
+        raise AssertionError(f"bpnp: input gradients at the kernel's solutions differ from the plain version's by {worst} "
+                             f"(max |d p6d| {dp6d:.3g} there; {worst_all:.3g} on every held row)")
+    with f32_precision():
+        bwd_ms = cuda_ms(lambda: ift_vjp(g, p6d, x, z, K), 10)
+    step_ms = cuda_ms(lambda: step(batch, gen), 5)
+    if any(p.grad is not None and not torch.isfinite(p.grad).all() for p in model.parameters()):
+        raise AssertionError("bpnp train step: non-finite gradients in the timed steps")
+    kp_apart = abs(fwd_losses[4] - fwd_plain[4]) / fwd_plain[4]
+    say("bpnp", t0, f"B={x.shape[0]} (batch 4 x {OBJECTS} objects, {TRAIN_SIZE}x{TRAIN_SIZE}, {SHORT_FOCAL:.0f}-px "
+        f"focal, {SCATTER_PX} scattered pixels per object; the voted keypoints spread {spread.min():.2f}-"
+        f"{spread.max():.2f} px): one step, losses finite {np.array2string(losses, precision=5)}; "
+        f"{len(pnp_calls)} PnP launches {[tuple(c[0].shape) for c in pnp_calls]}: planted poses found by the plain "
+        f"version on {int(held.sum())} of {held.numel()} rows, by the kernel on {int(on_truth(R, t).sum())}; kernel vs "
+        f"plain there max|dR| {dR:.3g} max|dt| {dt:.3g} (atol R 1e-4, t 2e-4); BPnP input gradients kernel vs plain "
+        f"{worst:.3g} of max (rtol 1e-3) on the {int(held0.sum())} held rows under 172 degrees (max |d p6d| "
+        f"{dp6d:.3g}; {worst_all:.3g} on every held row); train-step losses kernel "
+        f"{np.array2string(fwd_losses, precision=6)} plain {np.array2string(fwd_plain, precision=6)} (mask, vertex, "
+        f"proxy rtol 1e-4; the keypoint loss, which turns pose differences of the held size into pixels, "
+        f"{kp_apart:.3g} apart); BPnP backward (implicit-function VJP, torch.func) {bwd_ms:.3f} ms; "
+        f"BPnP train step {step_ms:.3f} ms; launches {dict((n, fn.launches) for n, fn in counters.items())}")
+
+
+def phase_train_harness(dev, kernels):
+    """17. run_training on a written 480x640 scene (448x448 crops, config_8): 2 epochs with pose validation and a
+    checkpoint each, then a resume for a third."""
+    import contextlib
+    import io
+
+    import torch
+
+    from casapose_tpu_torch.train import run_training
+
+    t0 = time.time()
+    counters = count_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        names = write_scene(tmp, n_images=40)
+        say("train harness", t0, f"wrote 40 images of {H}x{W} with {OBJECTS} objects")
+        flags = ["--data", os.path.join(tmp, "data"), "--datatest", os.path.join(tmp, "data"),
+                 "--datameshes", os.path.join(tmp, "models"), "--object", ",".join(names), "--saveinterval", "1",
+                 "--validationinterval", "1", "--loginterval", "3", "--workers", "4", "--manualseed", "1",
+                 "--pretrained", "0"]
+        for fn in counters.values():
+            fn.launches = 0
+        lines = []
+        for epochs in (2, 3):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                state = run_training(train_opt(*flags, "--epochs", str(epochs), "--outf", os.path.join(tmp, "out")),
+                                     device=str(dev))
+            out = buf.getvalue()
+            print(out, end="", flush=True)
+            lines.append(out)
+        torch.cuda.synchronize()
+        for name, fn in counters.items():
+            kernels[name]["launches_by_path"]["train harness"] = fn.launches
+        if counters["pnp"].launches == 0:
+            raise AssertionError("train harness: the PnP kernel never launched (pose validation)")
+        if "restored checkpoint at epoch 2" not in lines[1] or "Finished epoch 3" not in lines[1]:
+            raise AssertionError("train harness: the second run did not resume from step_2")
+        ckpt = sorted(os.listdir(os.path.join(tmp, "out", "training_checkpoints")))
+        with open(os.path.join(tmp, "out", "test_summary.csv")) as f:
+            summary = f.read().strip().splitlines()
+        values = [float(x) for x in summary[-1].split(",")[2:]]
+        if ckpt != ["step_1", "step_2", "step_3"] or not np.isfinite(values).all() or state.step <= 0:
+            raise AssertionError(f"train harness: checkpoints {ckpt}, last test summary {summary[-1]}")
+        keep = [ln for ln in "".join(lines).splitlines() if ln.startswith(("train:", "== TRAINING", "== VALIDATION",
+                                                                           "restored"))]
+        say("train harness", t0, "2 epochs + a resumed third, pose validation each epoch, checkpoints "
+            f"{ckpt}, {state.step} optimizer steps after the resume; launches "
+            f"{dict((n, fn.launches) for n, fn in counters.items())}; " + " | ".join(keep))
+
+
 def main():
     import torch
 
@@ -1292,6 +1696,10 @@ def main():
     phase_models(dev)  # 12
     phase_eval_paths(dev, kernels)  # 13
     phase_bf16_inference(dev, kernels, f32_times)  # 14
+    torch.cuda.empty_cache()
+    phase_train_steps(dev, kernels)  # 15
+    phase_bpnp(dev, kernels)  # 16
+    phase_train_harness(dev, kernels)  # 17
 
     meta = {
         "voting": ("casapose_tpu_torch/csrc/voting.cu", "casapose_tpu/ops/voting_kernel.py:103"),

@@ -26,6 +26,9 @@ eval_slice = {"casapose_tpu_torch." + m for m in (
     "eval", "core.checkpoint", "data.mesh", "data.ndds", "data.pipeline", "losses.losses", "ops.vectorfield",
     "pose.bpnp", "pose.metrics", "pose.ransac", "utils.config", "utils.io")}
 assert eval_slice <= set(names), sorted(eval_slice - set(names))
+train_slice = {"casapose_tpu_torch." + m for m in (
+    "train", "core.optimizer", "data.augment", "data.color", "losses.schedules")}
+assert train_slice <= set(names), sorted(train_slice - set(names))
 print(len(names))
 """
 
@@ -34,11 +37,13 @@ import torch
 assert not torch.cuda.is_available()
 from casapose_tpu_torch.entry import build_inference_step
 from casapose_tpu_torch.eval import main, run_evaluation
+from casapose_tpu_torch.train import run_training
 from casapose_tpu_torch.models.registry import get_model
 from casapose_tpu_torch.utils.config import parse_config
 opt = parse_config(["--estimate_confidence", "1", "--estimate_coords", "1", "--object", "obj_000001"])
 for call in (lambda: build_inference_step(), lambda: get_model("casapose_c_gcu5", 27, 9), lambda: run_evaluation(opt),
-             lambda: main(["--estimate_confidence", "1", "--estimate_coords", "1", "--object", "obj_000001"])):
+             lambda: main(["--estimate_confidence", "1", "--estimate_coords", "1", "--object", "obj_000001"]),
+             lambda: run_training(opt)):
     try:
         call()
     except RuntimeError as e:
@@ -57,7 +62,7 @@ def _run(code):
 def test_every_module_imports_without_jax_or_the_jax_package():
     proc = _run(_POISONED_IMPORT)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 29  # every module of both slices was walked
+    assert int(proc.stdout.split()[-1]) >= 34  # every module of the slices was walked
 
 
 def test_entry_points_raise_without_cuda():

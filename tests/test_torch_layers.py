@@ -90,12 +90,17 @@ def test_clade_weighted_norm():
 
 
 def test_batch_norm_refuses_training_mode():
+    """Training mode no longer raises: it normalises with the batch's statistics and updates the running ones
+    (held against flax in tests/test_torch_train_bn.py)."""
     import torch
 
     from casapose_tpu_torch.models.layers import BatchNorm
 
-    with pytest.raises(NotImplementedError):
-        BatchNorm(3).train()(torch.zeros(1, 3, 2, 2))
+    bn = BatchNorm(3).train()
+    x = torch.arange(24, dtype=torch.float32).reshape(2, 3, 2, 2)
+    y = bn(x)
+    torch.testing.assert_close(y.mean(dim=(0, 2, 3)), torch.zeros(3), atol=1e-6, rtol=0)
+    torch.testing.assert_close(bn.running_mean, 0.01 * x.mean(dim=(0, 2, 3)))
 
 
 def test_guided_upsampling():
