@@ -158,8 +158,9 @@ class BatchIterator:
     """Iterator over ``epochs`` epochs of a dataset with a bounded prefetch queue, fed by a producer thread."""
 
     def __init__(self, dataset, indices, epochs, batchsize, imagesize, cropratio, max_count, workers, prefetch, shuffle,
-                 seed, record_cache=None, drop_remainder=True):
+                 seed, record_cache=None, drop_remainder=True, rows=None):
         self.dataset = dataset
+        self.rows = rows
         self.record_cache = record_cache
         self.epochs = epochs
         self.indices = indices
@@ -198,6 +199,8 @@ class BatchIterator:
 
     def _emit(self, idxs):
         seeds = self.rng.integers(0, 2**63 - 1, size=len(idxs))
+        if self.rows is not None:  # this rank's rows of the global batch: the same images and seeds, decoded here
+            idxs, seeds = idxs[self.rows], seeds[self.rows]
         samples = list(self.pool.map(self._sample, idxs, seeds))
         batch = {}
         for key in samples[0]:
@@ -239,11 +242,14 @@ class BatchIterator:
 
 
 def make_dataset(dataset, batchsize, epochs, prefetch, imagesize, cropratio, worker, no_objects, shuffle=True,
-                 mirrored_strategy=None, seed=None, record_cache_dir=None, drop_remainder=True):
+                 mirrored_strategy=None, seed=None, record_cache_dir=None, drop_remainder=True, rows=None):
     """The JAX package's ``generate_dataset`` signature: returns (iterator, batches per epoch).
 
     The iterator yields ``epochs`` epochs; the JAX package's loops forever.
     ``drop_remainder=False`` keeps every image: the epoch ends with one short batch.
+    ``rows`` (a slice of the global batch of ``batchsize``) makes the iterator
+    yield only those rows of each batch, decoding only them: a data-parallel
+    rank's share (``parallel/mesh.py``).
     """
     del no_objects, mirrored_strategy
     record_cache_dir = record_cache_dir or getattr(dataset, "record_cache_dir", None)
@@ -254,13 +260,14 @@ def make_dataset(dataset, batchsize, epochs, prefetch, imagesize, cropratio, wor
         dataset, list(range(data_size)), epochs, batchsize, imagesize, cropratio, max_count=1, workers=worker or 8,
         prefetch=prefetch or 4, shuffle=shuffle, seed=seed,
         record_cache=RecordCache(record_cache_dir) if record_cache_dir else None, drop_remainder=drop_remainder,
+        rows=rows,
     )
     return it, epoch_batches
 
 
 def prepare_device_batch(img_u8, labelmap, num_classes, generator=None, noise=0.0, brightness=0.0, contrast=0.0,
                          saturation=0.0, hue=0.0, color_jitter=False, normal=(0.5, 0.5), grayscale_to_rgb=False,
-                         draws=None):
+                         draws=None, rows=None):
     """Device-side batch finishing of the train and eval steps.
 
     uint8 image [b, h, w, c] -> colour jitter on the RAW 0..255 scale when
@@ -274,7 +281,10 @@ def prepare_device_batch(img_u8, labelmap, num_classes, generator=None, noise=0.
     device), or ``draws``, a dict of the values themselves (``hue``,
     ``saturation``, ``brightness``, ``contrast``, ``noise_std`` and
     ``noise``, the standard-normal tensor of the image's shape), which the
-    tests fill with the JAX package's numbers.
+    tests fill with the JAX package's numbers. ``rows`` ((first row, global
+    batch size)) says that the batch is one data-parallel rank's rows of a
+    global batch: the generator then draws the global batch's noise and the
+    rows take theirs, so every rank of a group draws what one process would.
     """
     img = img_u8.to(torch.float32)
     random = generator is not None or draws is not None
@@ -285,7 +295,12 @@ def prepare_device_batch(img_u8, labelmap, num_classes, generator=None, noise=0.
     if noise > 0 and random:
         if draws is None:
             std = torch.rand(1, generator=generator, device=img.device) * noise
-            gauss = torch.randn(img.shape, generator=generator, device=img.device)
+            if rows is None:
+                gauss = torch.randn(img.shape, generator=generator, device=img.device)
+            else:
+                first, global_b = rows
+                gauss = torch.randn((global_b,) + tuple(img.shape[1:]), generator=generator, device=img.device)
+                gauss = gauss[first : first + img.shape[0]]
         else:
             std, gauss = draws["noise_std"], draws["noise"]
         img = torch.clamp(img + gauss * std, -1.0, 1.0)

@@ -13,7 +13,7 @@ and the PnP solve are the hand-written CUDA kernels.
 import torch
 
 from casapose_tpu_torch.core.device import resolve_device
-from casapose_tpu_torch.core.numerics import f32_precision
+from casapose_tpu_torch.core.numerics import matmul_precision
 from casapose_tpu_torch.models.registry import PVNET_NAMES, get_model
 from casapose_tpu_torch.ops.voting import ls_voting
 from casapose_tpu_torch.pose.evaluation import poses_pnp
@@ -23,7 +23,7 @@ FLAGSHIP = "casapose_c_gcu5"
 
 
 def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generator=None, modelname=FLAGSHIP,
-                         base_model="resnet18", dtype=torch.float32, ransac_rounds=20):
+                         base_model="resnet18", dtype=torch.float32, ransac_rounds=20, precision="highest"):
     """Build the inference step and its model.
 
     Args:
@@ -36,6 +36,8 @@ def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generat
       modelname, base_model: a name and a backbone of the registry.
       dtype: the network's compute dtype, torch.float32 or torch.bfloat16.
       ransac_rounds: RANSAC rounds (PVNet models only).
+      precision: ``--matmul_precision``: "highest" (TF32 off, the default) or
+        "high" / "default" (TF32 in the network's convolutions and matmuls).
     Returns:
       (step, model); ``step(img [b, h, w, 3], keypoints3d [b, oc, 1, k, 3],
       camera [b, 3, 3]) -> poses [b, oc, 1, 3, 4]``, all float32 on
@@ -69,7 +71,7 @@ def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generat
     def step(img, keypoints3d, camera, return_points=False):
         if tuple(img.shape[1:]) != (h, w, 3):
             raise ValueError(f"step expects images [b, {h}, {w}, 3], got {tuple(img.shape)}")
-        with f32_precision():
+        with matmul_precision(precision):
             out = model(img)
             coords = vote(out)
             poses = poses_pnp(coords, out[..., :seg_dim], keypoints3d, camera, no_objects)

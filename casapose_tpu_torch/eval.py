@@ -15,14 +15,14 @@ Both add the losses and the per-object sums.
     python -m casapose_tpu_torch.eval -c configs/config_8.ini --datatest ... --datameshes ... [--device cpu]
 
 takes the flags of ``test_casapose.py`` and writes the same
-``loss_test_eval.csv`` and ``test_summary_eval.csv`` (and the BOP pose
-files under ``--write_poses 1``). It runs on the card unless ``--device
-cpu`` is given. Weights come from the JAX package's ``.npz`` export or from
-a checkpoint of ``python -m casapose_tpu_torch.train``. Not ported yet, and
-raising if asked for: the visual dumps, int8 inference,
-``--profile_dir``, a ``--matmul_precision`` other than highest, ``.h5``
-weights (``util_scripts/convert_h5_weights.py`` converts them) and orbax
-checkpoints (the JAX package's ``save_weights_npz`` exports them).
+``loss_test_eval.csv`` and ``test_summary_eval.csv`` (the BOP pose files
+under ``--write_poses 1``, the visual dumps under ``--save_eval_batches 1``,
+a ``torch.profiler`` Chrome trace of batches 1-5 under ``--profile_dir``).
+It runs on the card unless ``--device cpu`` is given, at
+``--matmul_precision``. Weights come from the JAX package's ``.npz`` export,
+a Keras ``.h5`` (where h5py imports) or a checkpoint of ``python -m
+casapose_tpu_torch.train``. Refused: int8 inference and orbax checkpoints
+(the JAX package's ``save_weights_npz`` exports them).
 """
 
 import argparse
@@ -34,28 +34,28 @@ import time
 import numpy as np
 import torch
 
-from casapose_tpu_torch.core.checkpoint import checkpoint_file, latest_checkpoint_step, load_weights_npz, restore_checkpoint
+from casapose_tpu_torch.core.checkpoint import (
+    checkpoint_file,
+    import_keras_h5,
+    latest_checkpoint_step,
+    load_weights_npz,
+    restore_checkpoint,
+)
 from casapose_tpu_torch.core.device import resolve_device
-from casapose_tpu_torch.core.numerics import f32_precision
+from casapose_tpu_torch.core.numerics import matmul_precision
 from casapose_tpu_torch.data.pipeline import prepare_device_batch
 from casapose_tpu_torch.losses.losses import LossWeights, composite_loss, keypoint_reprojection_loss, proxy_voting_dist
 from casapose_tpu_torch.models.registry import build_model_from_opt
 from casapose_tpu_torch.ops.vectorfield import get_all_vectorfields
 from casapose_tpu_torch.ops.voting import ls_voting
 from casapose_tpu_torch.pose.evaluation import estimate_and_evaluate_poses, evaluate_pose_estimates
+from casapose_tpu_torch.utils.profiler import ProfileWindow
 
 
 def _check_ported(opt):
-    """Raise for the options of the JAX harness that the port does not run."""
-    unported = {
-        "save_eval_batches (visual dumps)": bool(opt.save_eval_batches),
-        "quantized_inference int8": getattr(opt, "quantized_inference", "") == "int8",
-        "profile_dir": bool(getattr(opt, "profile_dir", None)),
-        "matmul_precision other than highest": getattr(opt, "matmul_precision", "highest") != "highest",
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"casapose_tpu_torch.eval: not ported yet: {', '.join(asked)}")
+    """Raise for the option of the JAX harness that the port does not run (int8 inference)."""
+    if getattr(opt, "quantized_inference", "") == "int8":
+        raise NotImplementedError("casapose_tpu_torch.eval: not ported yet: quantized_inference int8")
     if opt.estimate_coords and not opt.estimate_confidence:
         # The JAX step passes confidence=None to ls_voting here and fails in its softplus (a TypeError).
         raise ValueError("casapose_tpu_torch.eval: least-squares voting (estimate_coords 1) weighs the votes with "
@@ -80,7 +80,8 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
       (``img`` uint8 [b, h, w, c], ``seg`` [b, h, w, 1], ``keypoints2d``,
       ``keypoints3d``, ``camera``, ``diameters``, ``offsets``, ``poses_gt``)
       -> dict with ``losses`` [5], ``pose_stats`` (8 x [oc]) and the per-image
-      outputs of the JAX step. With ``--eval_chunk c`` the batch runs in
+      outputs of the JAX step (``proxy_dist`` too under
+      ``--save_eval_batches``). With ``--eval_chunk c`` the batch runs in
       chunks of c images (and a tail chunk): losses are the image-weighted
       mean over chunks, pose stats are sums.
     """
@@ -94,7 +95,7 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
 
     @torch.no_grad()
     def _eval_batch(batch):
-        with f32_precision():
+        with matmul_precision(getattr(opt, "matmul_precision", "highest") or "highest"):
             img, target_seg = prepare_device_batch(batch["img"], batch["seg"], seg_dim, grayscale_to_rgb=not opt.color_dataset)
             target_vertex = batch["keypoints2d"]
             target_dirs = get_all_vectorfields(target_seg, target_vertex, batch["seg"], separated)
@@ -144,11 +145,13 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
                 )
             losses = composite_loss(output_seg, target_seg, output_dirs, target_dirs, target_vertex, loss_weights,
                                     kp_loss=kp_loss)
-            _, object_loss_values = proxy_voting_dist(
+            proxy_dist, object_loss_values = proxy_voting_dist(
                 output_dirs, target_vertex, vertex_one_hot_weights=target_seg[:, :, :, 1:],
                 vertex_weights=target_seg[:, :, :, 0:1], invert_weights=True,
             )
+        extra = {"proxy_dist": proxy_dist} if opt.save_eval_batches else {}
         return {
+            **extra,
             "losses": torch.stack(losses),
             "pose_stats": pose_stats,
             "proxy_per_object": object_loss_values,
@@ -188,16 +191,14 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
 
 
 def _load_weights(opt, model):
-    """Weights as the JAX harness finds them: ``--load_h5_weights`` (.npz here), else a checkpoint, else random."""
+    """Weights as the JAX harness finds them: ``--load_h5_weights`` (.npz, else .h5), else a checkpoint, else
+    random."""
     if opt.load_h5_weights:
         fname = opt.load_h5_filename
         frozen = os.path.join(opt.outf, "frozen_model")
         for c in (fname + ".npz", os.path.join(frozen, fname + ".npz"), fname + ".h5", os.path.join(frozen, fname + ".h5")):
             if os.path.exists(c):
-                if not c.endswith(".npz"):
-                    raise NotImplementedError(f"{c}: .h5 weights are not ported yet; convert them to .npz with "
-                                              "util_scripts/convert_h5_weights.py on a host with JAX and h5py")
-                n, _ = load_weights_npz(c, model)
+                n, _ = (load_weights_npz if c.endswith(".npz") else import_keras_h5)(c, model)
                 print(f"loaded {n} arrays from {c}")
                 return
         raise FileNotFoundError(f"no weights found for {fname} (.npz / .h5, also under {frozen})")
@@ -213,6 +214,35 @@ def _load_weights(opt, model):
                 "checkpoint that python -m casapose_tpu_torch.train wrote")
         restore_checkpoint(ckpt, model, step=step)
         print(f"restored checkpoint {ckpt}/step_{step}")
+
+
+def _save_eval_visuals(opt, batch, out, pose_stats, no_objects, batch_idx):
+    """``--save_eval_batches``: the JAX harness's visual dumps of one batch under ``<evalf>/visual_batch_eval_mask``
+    (estimated masks, fields and poses of the batch; per image, the pose comparison, the proxy-error maps and the
+    proxy summary). ``add_correct`` is the batch's 3D-valid counts, as in the JAX harness."""
+    from casapose_tpu_torch.utils.visualization import (
+        save_eval_batch,
+        save_mask_by_proxy_loss,
+        save_pose_comparison,
+        save_proxy_error_maps,
+    )
+
+    host = {key: v.cpu().numpy() for key, v in out.items() if torch.is_tensor(v)}
+    visual_root = os.path.join(opt.evalf, "visual_batch_eval_mask")
+    save_eval_batch(batch, host["output_seg"], host["target_dirs"], host["output_dirs"], host["estimated_poses"],
+                    host["estimated_points"], no_objects, opt.no_points, path_out=visual_root,
+                    confidence=host["confidence"], add_correct=pose_stats[1], batch_idx=batch_idx)
+    imgs, tseg = (x.numpy() for x in prepare_device_batch(torch.as_tensor(batch["img"]), torch.as_tensor(batch["seg"]),
+                                                          1 + no_objects, grayscale_to_rgb=not opt.color_dataset))
+    ids = np.asarray(batch["image_id"]).reshape(-1)
+    for bi in range(batch["img"].shape[0]):
+        raw_id = ids[bi]
+        img_dir = os.path.join(visual_root, raw_id.decode("utf-8") if isinstance(raw_id, bytes) else str(raw_id))
+        save_pose_comparison(imgs[bi], host["estimated_poses"][bi], batch["poses_gt"][bi], batch["cuboid3d"][bi],
+                             batch["keypoints3d"][bi], batch["camera"][bi], batch["offsets"][bi], path_out=img_dir,
+                             add_correct=pose_stats[1], draw_reprojection=True)
+        save_proxy_error_maps(host["proxy_dist"][bi], tseg[bi], img_dir, no_features=opt.no_points)
+        save_mask_by_proxy_loss(host["proxy_per_object"][bi], tseg[bi], img_dir)
 
 
 def run_evaluation(opt, device="cuda"):
@@ -268,8 +298,11 @@ def run_evaluation(opt, device="cuda"):
     wall0 = mark = time.time()
     first_done, first_images = None, 0
     print(f"Test Batches: {test_batches}")
+    # --profile_dir: batches 1-5, as the JAX harness traces (batch 0 is its compile batch)
+    profiler = ProfileWindow(getattr(opt, "profile_dir", None), 1, 6, dev, "eval_trace")
     try:
         for batch_idx in range(int(test_batches)):
+            profiler.before(batch_idx)
             t0 = time.time()
             batch = testingdata.get_next()
             t1 = time.time()
@@ -306,10 +339,13 @@ def run_evaluation(opt, device="cuda"):
                 for bi in range(b_actual):
                     write_poses(batch["poses_gt"][bi], est[bi], objectsofinterest, batch["image_id"][bi],
                                 os.path.join(opt.evalf, "poses_out") + "/", time_needed=dt / b_actual)
+            if opt.save_eval_batches:
+                _save_eval_visuals(opt, batch, out, ps, no_objects, batch_idx)
             phase["host_io"] += time.time() - now
             if first_done is None:
                 first_done, first_images = time.time(), b_actual
         loop_end = time.time()
+        profiler.close()  # fewer than 7 batches: stop at the loop's end
     finally:
         testingdata.close()
 

@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from casapose_tpu_torch.core.numerics import divide_no_nan
+from casapose_tpu_torch.parallel.mesh import all_reduce_sum
 from casapose_tpu_torch.pose.bpnp import bpnp_pose
 from casapose_tpu_torch.pose.geometry import project_batch, rodrigues, transform_points_back_batch
 
@@ -159,6 +160,7 @@ def keypoint_reprojection_loss(
     use_bpnp_reprojection_loss=False,
     estimate_poses=False,
     filter_with_gt=True,
+    data_parallel=None,
 ):
     """Smooth-L1 between the voted keypoints and their GT-pose reprojections, with optional pose estimation.
 
@@ -171,6 +173,10 @@ def keypoint_reprojection_loss(
       camera_data: [b, 3, 3]; element 0 is used (shared intrinsics).
       offsets: [b, 10] loader offsets.
       confidence: [b, h, w, vc] raw confidences (pre-softplus).
+      data_parallel: a ``parallel/mesh.py::DataParallel``, each rank with its rows of the global batch: the loss is normalised by the
+        global count of available objects and scaled by the rank count, so
+        that the mean over the ranks (what DDP's gradient averaging
+        differentiates, and what the trainer logs) is the global batch's loss.
     Returns:
       (loss, poses_est [b, oc, ic, 3, 4] or None, points [b, oc, vc, 2] in
       original-image (x, y) pixels).
@@ -224,7 +230,9 @@ def keypoint_reprojection_loss(
     loss = _smooth_l1(loss)
     loss = torch.where(loss > max_pixel_error, max_pixel_error + (loss - max_pixel_error) * 0.01, loss)
     loss = torch.mean(loss * available, dim=(1, 2))  # [b * oc]
-    loss = divide_no_nan(torch.sum(loss), torch.sum(available))
+    # Over the global count of available objects; times the ranks, since DDP averages the ranks' gradients.
+    ws = 1 if data_parallel is None else data_parallel.world_size
+    loss = divide_no_nan(torch.sum(loss) * ws, all_reduce_sum(torch.sum(available), data_parallel))
     if confidence_regularization:
         loss = loss + confidence_loss
     return loss, poses_est, pts.reshape(b, oc, vc, 2)

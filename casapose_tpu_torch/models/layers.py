@@ -22,12 +22,37 @@ cast where flax casts them, so the roundings fall in the same places:
     pass, the order of ``jax.image.resize``'s two contractions.
 """
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from casapose_tpu_torch.parallel.mesh import all_reduce_sum
+
 BN_EPS = 2e-5
 BN_MOMENTUM = 0.99
+
+# True while a rematerialised forward runs again in the backward pass (``remat_context_fn``): BatchNorm then
+# normalises with the batch statistics as before but leaves its running statistics alone, so they update once a
+# step, as flax's do under jax.checkpoint.
+_RECOMPUTING = contextvars.ContextVar("casapose_tpu_torch_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def remat_context_fn():
+    """The ``context_fn`` of ``torch.utils.checkpoint.checkpoint`` for the network forward: (the forward's context,
+    the recompute's context, in which BatchNorm skips its running update)."""
+    return contextlib.nullcontext(), _recomputing()
 
 _OFFSETS_3X3 = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 
@@ -58,6 +83,13 @@ class BatchNorm(nn.Module):
     the biased variance in the normalisation and in the running update
     ``ra = 0.99 * ra + 0.01 * batch``. The statistics are plain tensor ops,
     so gradients flow through the mean and the variance as JAX's do.
+
+    Under a data-parallel group of several ranks (``data_parallel``, set by
+    ``parallel/mesh.py::sync_batchnorm``) the statistics are those of the
+    global batch, as JAX's sharded reduction computes them: the per-channel
+    sums of x and x^2 and the element count are summed over the ranks (the
+    sum carries the gradient), then the same fast variance is taken. A
+    rematerialised forward (:func:`remat_context_fn`) skips the running update.
     """
 
     def __init__(self, num_features, center=True, scale=True, dtype=None):
@@ -67,16 +99,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.dtype = dtype
+        self.data_parallel = None
+
+    def _global_moments(self, xf):
+        count = torch.full((1,), xf.numel() // xf.shape[1], dtype=xf.dtype, device=xf.device)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]),
+                              self.data_parallel)
+        c = xf.shape[1]
+        mean = sums[:c] / sums[-1]
+        return mean, sums[c : 2 * c] / sums[-1]
 
     def forward(self, x):
         shape = (1, -1, 1, 1)
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp(torch.mean(xf * xf, dim=(0, 2, 3)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
+            if self.data_parallel is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                mean_sq = torch.mean(xf * xf, dim=(0, 2, 3))
+            else:
+                mean, mean_sq = self._global_moments(xf)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
+            if not _RECOMPUTING.get():
+                with torch.no_grad():
+                    self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1.0 - BN_MOMENTUM) * mean)
+                    self.running_var.copy_(BN_MOMENTUM * self.running_var + (1.0 - BN_MOMENTUM) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS)

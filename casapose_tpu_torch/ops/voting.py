@@ -23,7 +23,7 @@ Both normalise by the weight mass and solve the 2x2 system in closed form.
 
 import torch
 
-from casapose_tpu_torch.core.numerics import divide_no_nan
+from casapose_tpu_torch.core.numerics import divide_no_nan, f32_pinned
 from casapose_tpu_torch.ops.connected_components import largest_component_mask
 from casapose_tpu_torch.ops.plain import is_plain
 from casapose_tpu_torch.ops.voting_kernel import voting_accumulate, voting_accumulate_plain
@@ -94,6 +94,7 @@ def _solve_sums(S, h):
     return torch.stack([py, px], dim=-1).to(torch.promote_types(S.dtype, torch.float32)) * float(h)
 
 
+@f32_pinned  # the JAX contractions are HIGHEST whatever --matmul_precision says, in the gradient too
 def einsum_sums(hot, directions, weights, sigmoid_weights):
     """The einsum form: six [oc, P] x [P, k] contractions sharing the class mask."""
     b, h, w, oc = hot.shape

@@ -14,7 +14,7 @@ path is not ported yet.
 
 import torch
 
-from casapose_tpu_torch.core.numerics import divide_no_nan
+from casapose_tpu_torch.core.numerics import divide_no_nan, f32_precision
 from casapose_tpu_torch.ops.plain import is_plain
 from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel, solve_pnp_plain
 from casapose_tpu_torch.pose.geometry import rodrigues, rotation_to_rvec
@@ -38,6 +38,7 @@ def substitute_degenerate(pts2d, pts3d, K):
     return torch.where(degenerate[:, None, None], _project_placeholder(pts3d, K), pts2d), degenerate
 
 
+@f32_precision()
 def solve_pnp(pts2d, pts3d, K, iterations=10):
     """Full PnP per row.
 

@@ -4,8 +4,9 @@ On tensors: ``rodrigues`` (axis-angle -> matrix) and ``rotation_to_rvec``
 (its log map), batched, with the JAX package's guards for theta ~ 0 and
 theta ~ pi; ``project_batch``; ``transform_points_back_batch``, which undoes
 the loader's crop / rotate / translate / scale on 2D points. On numpy, for
-the dataset: the 2D rotation matrix, the forward point map, quaternions and
-fixed model transforms, copied from the JAX package's host half.
+the dataset and the visual dumps: the 2D rotation matrix, the forward point
+map, the loader's offsets, projection, quaternions and fixed model
+transforms, copied from the JAX package's host half.
 """
 
 import math
@@ -13,9 +14,10 @@ import math
 import numpy as np
 import torch
 
-from casapose_tpu_torch.core.numerics import divide_no_nan
+from casapose_tpu_torch.core.numerics import divide_no_nan, f32_pinned
 
 
+@f32_pinned
 def rodrigues(rvecs):
     """Axis-angle vectors [B, 3] -> rotation matrices [B, 3, 3]; zero angle gives identity."""
     b = rvecs.shape[0]
@@ -58,6 +60,7 @@ def rotation_to_rvec(R):
     return torch.where(near_pi[..., None], rvec_pi, rvec_generic)
 
 
+@f32_pinned
 def project_batch(xyz, K, RT):
     """Project model points with one pose per batch element.
 
@@ -73,6 +76,7 @@ def project_batch(xyz, K, RT):
     return divide_no_nan(uvw[:, :, :2], uvw[:, :, 2:]), xyz_cam
 
 
+@f32_pinned
 def transform_points_back_batch(points, h_crop, w_crop, sx, sy, dx, dy, angle, scale):
     """Undo the loader's crop, rotation, translation and scale on 2D points.
 
@@ -123,6 +127,25 @@ def reproject_np(points, tm, rm, offset):
     tmat[0:2] = tm
     out = tmat @ (rmat @ np.vstack((pts.T, np.ones(len(pts)))))
     return out[0:2].T - offset
+
+
+def apply_offsets_np(points, offsets):
+    """Map original-image points into the augmented network input (the forward map that
+    :func:`transform_points_back_batch` inverts); offsets are the loader's [h_crop, w_crop, out_h, out_w, dx, dy,
+    angle, scale, orig_w, orig_h]."""
+    h_crop, w_crop = offsets[0], offsets[1]
+    sx, sy = offsets[8], offsets[9]
+    dx, dy, angle, scale = offsets[4], offsets[5], offsets[6], offsets[7]
+    tm = np.float32([[1, 0, dx], [0, 1, dy]])
+    rm = get_rotation_matrix_2D_np((sx / 2, sy / 2), angle)
+    return reproject_np(points, tm, rm, [w_crop, h_crop]) * scale
+
+
+def project_np(xyz, K, RT):
+    """Projection of [N, 3] points on the host: (xy [N, 2], xyz_cam [N, 3])."""
+    xyz_cam = np.dot(xyz, RT[:, :3].T) + RT[:, 3:].T
+    uvw = np.dot(xyz_cam, K.T)
+    return uvw[:, :2] / uvw[:, 2:], xyz_cam
 
 
 def transform_points_np(points, transform):

@@ -31,7 +31,7 @@ candidate indices}``.
 
 import torch
 
-from casapose_tpu_torch.core.numerics import divide_no_nan
+from casapose_tpu_torch.core.numerics import divide_no_nan, f32_precision
 
 
 def _select_candidates(mask, noise, max_num, w):
@@ -127,6 +127,7 @@ def _ransac_pairs(mask, vertex, noise, hyp_draws, round_hyp_num, inlier_thresh, 
     return torch.where((fg_count < min_num)[:, None, None], torch.zeros_like(out), out)
 
 
+@f32_precision()
 def ransac_voting_layer_all_masks(mask, vertex, round_hyp_num=512, inlier_thresh=0.99, confidence=0.99, max_iter=1,
                                   min_num=5, max_num=30000, generator=None, draws=None, chunk_elements=1 << 27):
     """Batched RANSAC voting.

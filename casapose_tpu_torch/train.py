@@ -6,24 +6,28 @@ Counterpart of ``casapose_tpu/train.py``. One train step:
     -> device finishing (colour jitter when imgaug is off, normalisation,
        noise, one-hot masks; data/pipeline.py)
     -> GT direction fields (ops/vectorfield.py)
-    -> network forward with batch-statistics BatchNorm (models/)
+    -> network forward with batch-statistics BatchNorm (models/), under
+       ``torch.utils.checkpoint`` with ``--remat``
     -> LS voting in its differentiable einsum form + keypoint reprojection
        loss, with BPnP (the PnP kernel forward, the implicit-function
        backward) under ``use_bpnp_reprojection_loss``
-    -> composite loss, ``backward()``, ``AdamTF.step()``.
+    -> composite loss, ``backward()``, ``AdamTF.step()``,
+  at ``--matmul_precision`` (``highest``: TF32 off; ``high``/``default``: TF32).
 
     python -m casapose_tpu_torch.train -c configs/config_8.ini --data ... --datatest ... --datameshes ... [--device cpu]
+    torchrun --nproc_per_node N -m casapose_tpu_torch.train -c ... --batchsize <global batch>
 
 takes the flags of ``train_casapose.py`` and writes the same ``loss_train.csv``,
 ``loss_test.csv``, ``train_summary.csv`` and ``test_summary.csv``, checkpoints
-under ``<outf>/<net>/step_<epoch>`` and the ``.npz`` weights under
-``<outf>/frozen_model``. It runs on one card unless ``--device cpu`` is
-given. Not ported yet, and raising if asked for (ROADMAP queue 1): data
-parallelism over several cards, ``--remat``, the weight surgery
-(``copy_weights_*``), ``.h5`` weights and the ImageNet ``.h5`` backbone,
-``--profile_dir``, ``--save_debug_batch`` and a ``--matmul_precision`` other
-than highest. The ``.h5`` export of every ``saveinterval`` is replaced by the
-``.npz``, with a line that says so.
+under ``<outf>/<net>/step_<epoch>``, the ``.npz`` weights under
+``<outf>/frozen_model`` and, where h5py imports, the Keras ``.h5`` beside
+them. It runs on the card unless ``--device cpu`` is given; under
+``torchrun`` each process trains on its card (``cuda:LOCAL_RANK``) with its
+rows of the global batch, data-parallel as the JAX trainer's mesh
+(``parallel/mesh.py``). Every option of the JAX trainer runs: the ImageNet
+backbone (``--pretrained``, from a local ``.h5``), ``.h5`` and ``.npz``
+weights, the weight surgery, ``--save_debug_batch`` and ``--profile_dir``
+(a ``torch.profiler`` Chrome trace).
 """
 
 import argparse
@@ -35,19 +39,41 @@ import time
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
+from torch.utils.checkpoint import checkpoint
 
-from casapose_tpu_torch.core.checkpoint import load_weights_npz, restore_checkpoint, save_checkpoint, save_weights_npz
+from casapose_tpu_torch.core.checkpoint import (
+    apply_expansion_surgery,
+    copy_weights_vertex,
+    export_keras_h5,
+    h5py_available,
+    import_keras_h5,
+    load_imagenet_backbone,
+    load_weights_npz,
+    restore_checkpoint,
+    save_checkpoint,
+    save_weights_npz,
+)
 from casapose_tpu_torch.core.device import resolve_device
-from casapose_tpu_torch.core.numerics import f32_precision
+from casapose_tpu_torch.core.numerics import matmul_precision
 from casapose_tpu_torch.core.optimizer import AdamTF
 from casapose_tpu_torch.data.pipeline import prepare_device_batch
 from casapose_tpu_torch.losses.losses import composite_loss, keypoint_reprojection_loss
 from casapose_tpu_torch.losses.schedules import LossWeightHandler, make_lr_schedule
 from casapose_tpu_torch.models.casapose import init_weights
-from casapose_tpu_torch.models.registry import build_model_from_opt
+from casapose_tpu_torch.models.layers import remat_context_fn
+from casapose_tpu_torch.models.registry import build_model_from_opt, get_model
 from casapose_tpu_torch.ops.vectorfield import get_all_vectorfields
 from casapose_tpu_torch.ops.voting import ls_voting
+from casapose_tpu_torch.parallel.mesh import (
+    all_reduce_mean,
+    all_reduce_sum,
+    init_data_parallel,
+    shutdown,
+    sync_batchnorm,
+)
 from casapose_tpu_torch.pose.evaluation import estimate_and_evaluate_poses, evaluate_pose_estimates
+from casapose_tpu_torch.utils.profiler import ProfileWindow
 
 def _cache_records_enabled(opt):
     """--cache_records unset (None) means on for training, as in the JAX trainer."""
@@ -85,6 +111,7 @@ class StepConfig:
     use_imgaug: bool
     color_dataset: bool = True
     remat: bool = False
+    matmul_precision: str = "highest"
 
 
 def init_model(model, seed=0):
@@ -92,25 +119,44 @@ def init_model(model, seed=0):
     return init_weights(model, torch.Generator().manual_seed(seed))
 
 
+class RematNetwork(torch.nn.Module):
+    """The network forward under ``torch.utils.checkpoint`` (``--remat``, the JAX step's ``jax.checkpoint``): the
+    backward pass recomputes the activations instead of keeping them, and BatchNorm's running statistics update in
+    the first forward only (``models/layers.py::remat_context_fn``)."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, img, gt_seg=None):
+        return checkpoint(self.net, img, gt_seg, use_reentrant=False, context_fn=remat_context_fn)
+
+
 def forward_and_loss(model, batch, cfg, loss_weights, train, generator=None, draws=None, pose_estimation=False,
-                     min_num_eval=200):
+                     min_num_eval=200, data_parallel=None):
     """The forward pass and loss shared by the train and eval steps (``casapose_tpu/train.py::forward_and_loss``).
 
-    ``batch`` is a dict of tensors on the model's device. ``train`` selects
+    ``model`` is the network, or what :func:`build_train_step` wraps it in
+    (:class:`RematNetwork`, ``DistributedDataParallel``). ``batch`` is a dict
+    of tensors on the model's device: all of the batch, or with
+    ``data_parallel`` this rank's rows of the global batch. ``train`` selects
     batch-statistics BatchNorm, the random batch finishing (from
     ``generator`` or the given ``draws``, see ``prepare_device_batch``), the
     confidence regularisation and the loader's filtered segmentation in the
     vertex and proxy losses. Returns ([loss, mask, vertex, proxy, keypoint],
-    aux).
+    aux); with ``data_parallel`` the mean of each loss over the ranks is the
+    global batch's.
     """
     model.train(train)
     seg_dim = cfg.no_objects + 1
     k = cfg.no_points
+    b = batch["img"].shape[0]
+    rows = None if data_parallel is None else (data_parallel.rank * b, data_parallel.world_size * b)
     img, target_seg = prepare_device_batch(
         batch["img"], batch["seg"], seg_dim, generator=generator if train else None, draws=draws if train else None,
         noise=cfg.noise if train else 0.0, brightness=cfg.brightness, contrast=cfg.contrast,
         saturation=cfg.saturation, hue=cfg.hue, color_jitter=train and not cfg.use_imgaug,
-        grayscale_to_rgb=not cfg.color_dataset,
+        grayscale_to_rgb=not cfg.color_dataset, rows=rows,
     )
     keypoints2d, keypoints3d, cam_mat = batch["keypoints2d"], batch["keypoints3d"], batch["camera"]
     filtered_seg, poses_gt = batch["seg"], batch["poses_gt"]
@@ -134,7 +180,7 @@ def forward_and_loss(model, batch, cfg, loss_weights, train, generator=None, dra
             max_pixel_error=cfg.max_keypoint_pixel_error, min_num=50,
             use_bpnp_reprojection_loss=cfg.use_bpnp_reprojection_loss,
             estimate_poses=cfg.use_bpnp_reprojection_loss if train else True,
-            confidence_regularization=cfg.confidence_regularization and train,
+            confidence_regularization=cfg.confidence_regularization and train, data_parallel=data_parallel,
         )
 
     losses = composite_loss(
@@ -156,39 +202,66 @@ def forward_and_loss(model, batch, cfg, loss_weights, train, generator=None, dra
     return losses, aux
 
 
-def build_train_step(model, optimizer, cfg, loss_weights):
+def build_train_step(model, optimizer, cfg, loss_weights, data_parallel=None):
     """One optimizer step: ``step(batch, generator=None, draws=None) -> losses [5]`` (detached, on the device).
 
     Forward with batch statistics (the BatchNorm buffers update in it),
-    ``loss.backward()``, ``optimizer.step()``, in full float32 (TF32 off).
+    ``loss.backward()``, ``optimizer.step()``, at ``cfg.matmul_precision``;
+    with ``cfg.remat`` the forward runs under :class:`RematNetwork`. With
+    ``data_parallel`` (a group of any size) the network runs under
+    ``DistributedDataParallel`` and ``batch`` is this rank's rows of the
+    global batch: BatchNorm takes the global batch's moments, every rank
+    steps AdamTF with the same averaged gradient, and the losses returned are
+    the global batch's on every rank.
     """
-    if cfg.remat:
-        raise NotImplementedError("--remat is not ported yet (ROADMAP queue 1): under torch.utils.checkpoint the "
-                                  "recomputed forward would update the BatchNorm running statistics twice")
+    net = RematNetwork(model) if cfg.remat else model
+    if data_parallel is not None:
+        sync_batchnorm(model, data_parallel)
+        dev = next(model.parameters()).device
+        # Neither find_unused_parameters nor a static graph: every parameter reaches the loss through the one
+        # tensor the network returns (segmentation, directions and confidences concatenated), so every step gives
+        # each a gradient, zero where a loss is off (tests/test_torch_ddp_params.py: every registry model, and
+        # the flags that bypass a head, a loss or decoder 2's predicted mask). broadcast_buffers off: the running
+        # statistics update from the global moments, the same on every rank, as flax's under JAX's mesh.
+        # Gradients as views of DDP's buckets, made before the first backward and zeroed in place: autograd then
+        # adds each gradient into its bucket. Without that, a 1x1 conv's weight gradient arrives in channels-last
+        # strides that differ from its parameter's, and DDP warns and copies it into the bucket every step.
+        for p in model.parameters():
+            if p.requires_grad:
+                p.grad = torch.zeros_like(p)
+        net = DistributedDataParallel(net, device_ids=[dev.index] if dev.type == "cuda" else None,
+                                      broadcast_buffers=False, gradient_as_bucket_view=True)
 
     def step(batch, generator=None, draws=None):
-        optimizer.zero_grad(set_to_none=True)
-        with f32_precision():
-            losses, _ = forward_and_loss(model, batch, cfg, loss_weights, train=True, generator=generator,
-                                         draws=draws)
+        optimizer.zero_grad(set_to_none=data_parallel is None)  # under DDP the gradients stay the buckets' views
+        with matmul_precision(cfg.matmul_precision):
+            losses, _ = forward_and_loss(net, batch, cfg, loss_weights, train=True, generator=generator,
+                                         draws=draws, data_parallel=data_parallel)
             losses[0].backward()
             optimizer.step()
-        return torch.stack([x.detach() for x in losses])
+        return all_reduce_mean(torch.stack([x.detach() for x in losses]), data_parallel)
 
     return step
 
 
-def build_eval_step(model, cfg, loss_weights, pose_validation, min_num_eval=200):
-    """``step(batch) -> {"losses": [5], "pose_stats": 8 x [oc] when pose_validation}``, running BatchNorm statistics."""
+def build_eval_step(model, cfg, loss_weights, pose_validation, min_num_eval=200, data_parallel=None):
+    """``step(batch) -> {"losses": [5], "pose_stats": 8 x [oc] when pose_validation}``, running BatchNorm statistics.
+
+    With ``data_parallel``, ``batch`` is this rank's rows of the global batch;
+    the losses are averaged and the pose statistics summed over the ranks, so
+    every rank returns the global batch's (pose validation is reduced, not
+    left to rank 0).
+    """
 
     @torch.no_grad()
     def step(batch):
-        with f32_precision():
+        with matmul_precision(cfg.matmul_precision):
             losses, aux = forward_and_loss(model, batch, cfg, loss_weights, train=False,
-                                           pose_estimation=pose_validation, min_num_eval=min_num_eval)
-        out = {"losses": torch.stack(losses)}
+                                           pose_estimation=pose_validation, min_num_eval=min_num_eval,
+                                           data_parallel=data_parallel)
+        out = {"losses": all_reduce_mean(torch.stack(losses), data_parallel)}
         if pose_validation:
-            out["pose_stats"] = aux["pose_stats"]
+            out["pose_stats"] = [all_reduce_sum(x, data_parallel) for x in aux["pose_stats"]]
         return out
 
     return step
@@ -213,24 +286,8 @@ def step_config_from_opt(opt, no_objects):
         use_imgaug=bool(opt.use_imgaug),
         color_dataset=bool(opt.color_dataset),
         remat=bool(getattr(opt, "remat", False)),
+        matmul_precision=getattr(opt, "matmul_precision", "highest") or "highest",
     )
-
-
-def _check_ported(opt):
-    """Raise for the options of the JAX trainer that the port does not run (ROADMAP queue 1)."""
-    unported = {
-        "remat": bool(getattr(opt, "remat", False)),
-        "profile_dir": bool(getattr(opt, "profile_dir", None)),
-        "save_debug_batch": bool(opt.save_debug_batch),
-        "weight surgery (copy_weights_from_backup_network / copy_weights_add_confidence_maps)":
-            bool(opt.copy_weights_from_backup_network or opt.copy_weights_add_confidence_maps),
-        "matmul_precision other than highest": getattr(opt, "matmul_precision", "highest") != "highest",
-        "pretrained with an ImageNet .h5 ($CASAPOSE_IMAGENET_H5)":
-            bool(opt.pretrained) and bool(os.environ.get("CASAPOSE_IMAGENET_H5")),
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"casapose_tpu_torch.train: not ported yet (ROADMAP queue 1): {', '.join(asked)}")
 
 
 def device_batch(batch, dev):
@@ -243,22 +300,32 @@ def device_batch(batch, dev):
     return out
 
 
-def run_training(opt, device="cuda"):
-    """The training driver (``casapose_tpu/train.py::run_training``); returns a :class:`TrainState`."""
+def run_training(opt, device="cuda", data_parallel=None):
+    """The training driver (``casapose_tpu/train.py::run_training``); returns a :class:`TrainState`, or None after
+    ``--save_debug_batch``.
+
+    With ``data_parallel`` (``parallel/mesh.py::init_data_parallel``) this
+    process is one rank of a data-parallel group: it trains on
+    ``data_parallel.device`` with its rows of each global batch of
+    ``--batchsize``, and only rank 0 writes files.
+    """
     from casapose_tpu_torch.data.ndds import VectorfieldDataset
 
-    _check_ported(opt)
-    dev = resolve_device(device)
-    print("start:", datetime.datetime.now().time())
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"{torch.cuda.device_count()} cards visible: data parallelism is not ported yet (ROADMAP queue 1); "
-              f"training on {dev} alone")
+    dev = resolve_device(device) if data_parallel is None else data_parallel.device
+    rows = None if data_parallel is None else data_parallel.rows(opt.batchsize)
+    main_rank = data_parallel is None or data_parallel.rank == 0
+    say = print if main_rank else (lambda *args, **kwargs: None)
+    say("start:", datetime.datetime.now().time())
+    if data_parallel is not None:
+        say(f"data parallel: {data_parallel.world_size} ranks, global batch {opt.batchsize} "
+            f"({rows.stop - rows.start} images a rank)")
     checkpoint_path = os.path.join(opt.outf, opt.net)
     frozen_path = os.path.join(opt.outf, "frozen_model")
-    for p in (opt.outf, checkpoint_path, frozen_path):
-        os.makedirs(p, exist_ok=True)
-    with open(os.path.join(opt.outf, "header.txt"), "w") as f:
-        f.write(str(opt))
+    if main_rank:
+        for p in (opt.outf, checkpoint_path, frozen_path):
+            os.makedirs(p, exist_ok=True)
+        with open(os.path.join(opt.outf, "header.txt"), "w") as f:
+            f.write(str(opt))
 
     np.random.seed(opt.manualseed)
     objectsofinterest = [x.strip() for x in opt.object.split(",")]
@@ -278,9 +345,19 @@ def run_training(opt, device="cuda"):
     )
     trainingdata, train_batches = train_dataset.generate_dataset(
         opt.batchsize, opt.epochs, opt.prefetch, opt.imagesize, opt.crop_factor, opt.workers, no_objects,
-        seed=opt.manualseed,
+        seed=opt.manualseed, rows=rows,
     )
-    print(f"training data: {train_batches} batches")
+    say(f"training data: {train_batches} batches")
+    if opt.save_debug_batch:
+        from casapose_tpu_torch.utils.visualization import save_batches
+
+        try:
+            if main_rank:
+                save_batches(trainingdata, os.path.join(opt.outf, "visual_batch"))
+        finally:
+            trainingdata.close()
+        say("saved debug batch; exiting (save_debug_batch)")
+        return None
     testingdata, test_batches = None, 0
     if opt.datatest:
         test_dataset = VectorfieldDataset(
@@ -293,43 +370,77 @@ def run_training(opt, device="cuda"):
         )
         testingdata, test_batches = test_dataset.generate_dataset(
             opt.batchsize, opt.epochs, opt.prefetch, opt.imagesize, opt.crop_factor, opt.workers, no_objects,
-            seed=opt.manualseed + 1,
+            seed=opt.manualseed + 1, rows=rows,
         )
-        print(f"testing data: {test_batches} batches")
+        say(f"testing data: {test_batches} batches")
     try:
         return _train(opt, dev, trainingdata, int(train_batches), testingdata, int(test_batches), objectsofinterest,
-                      checkpoint_path, frozen_path)
+                      checkpoint_path, frozen_path, data_parallel, say)
     finally:
         trainingdata.close()
         if testingdata is not None:
             testingdata.close()
 
 
+def _load_frozen_weights(fname, model):
+    """``fname``.npz, else ``fname``.h5, into ``model``: (arrays loaded, the file read), or (0, None) if neither
+    exists."""
+    if os.path.exists(fname + ".npz"):
+        return load_weights_npz(fname + ".npz", model)[0], fname + ".npz"
+    if os.path.exists(fname + ".h5"):
+        return import_keras_h5(fname + ".h5", model)[0], fname + ".h5"
+    return 0, None
+
+
+def _weight_surgery(opt, model, no_objects, frozen_path, dev, say):
+    """The JAX trainer's weight surgery (``casapose_tpu/train.py:483-516``), on ``model`` in place: copy the
+    segmentation conv's rows and the CLADE tables from a trained network with fewer objects, or the direction
+    channels of one trained without confidence maps."""
+    add_confidence = bool(opt.copy_weights_add_confidence_maps and opt.estimate_confidence)
+    ver_dim = model.ver_dim
+    seg_dim = 1 + (no_objects if add_confidence else opt.objects_in_input_network)
+    backup = get_model(opt.modelname, ver_dim=ver_dim - opt.no_points if add_confidence else ver_dim, seg_dim=seg_dim,
+                       base_model=opt.backbonename, device=dev,
+                       generator=torch.Generator().manual_seed(opt.manualseed))
+    fname = os.path.join(frozen_path, opt.load_h5_filename)
+    n, found = _load_frozen_weights(fname, backup)
+    if found is None:
+        raise FileNotFoundError(f"backup network weights not found at {fname}.(npz|h5)")
+    say(f"loaded backup network ({n} arrays)")
+    if add_confidence:
+        state = copy_weights_vertex(model.state_dict(), backup.state_dict(), ver_dim - opt.no_points)
+    else:
+        state = apply_expansion_surgery(model.state_dict(), backup.state_dict(), opt.objects_to_copy)
+    model.load_state_dict(state)
+
+
 def _train(opt, dev, trainingdata, train_batches, testingdata, test_batches, objectsofinterest, checkpoint_path,
-           frozen_path):
+           frozen_path, data_parallel, say):
     no_objects = len(objectsofinterest)
+    main_rank = data_parallel is None or data_parallel.rank == 0
     model = build_model_from_opt(opt, no_objects, device=dev, generator=torch.Generator().manual_seed(opt.manualseed))
     if opt.pretrained:
-        print("pretrained=1: the ImageNet backbone import (.h5) is not ported yet (ROADMAP queue 1); "
-              "training from random init")
+        n_bb = load_imagenet_backbone(model, base_model=opt.backbonename)
+        if n_bb:
+            say(f"initialized backbone from imagenet weights ({n_bb} arrays)")
+        else:
+            say("pretrained=1 but imagenet weights unavailable; training from random init")
 
     lr_schedule = make_lr_schedule(opt.lr, opt.lr_decay, opt.lr_epochs, opt.lr_epochs_start, opt.lr_epochs_steps,
                                    train_batches)
     if opt.load_h5_weights:
-        fname = os.path.join(frozen_path, opt.load_h5_filename)
-        if os.path.exists(fname + ".npz"):
-            n, _ = load_weights_npz(fname + ".npz", model)
-            print(f"loaded {n} arrays from {fname}.npz")
-        elif os.path.exists(fname + ".h5"):
-            raise NotImplementedError(f"{fname}.h5: .h5 weights are not ported yet (ROADMAP queue 1); convert them "
-                                      "with util_scripts/convert_h5_weights.py on a host with JAX and h5py")
+        n, found = _load_frozen_weights(os.path.join(frozen_path, opt.load_h5_filename), model)
+        if found is not None:
+            say(f"{'loaded' if found.endswith('.npz') else 'imported'} {n} arrays from {found}")
+    if opt.copy_weights_from_backup_network or opt.copy_weights_add_confidence_maps:
+        _weight_surgery(opt, model, no_objects, frozen_path, dev, say)
     optimizer = AdamTF(model.parameters(), lr_schedule)
 
     start_epoch = 1
     restored = restore_checkpoint(checkpoint_path, model, optimizer)
     if restored is not None:
         start_epoch = restored + 1
-        print(f"restored checkpoint at epoch {restored}")
+        say(f"restored checkpoint at epoch {restored}")
 
     loss_handler = LossWeightHandler(
         mask_loss_weight=opt.mask_loss_weight, vertex_loss_weight=opt.vertex_loss_weight,
@@ -339,9 +450,14 @@ def _train(opt, dev, trainingdata, train_batches, testingdata, test_batches, obj
     )
     loss_weights = loss_handler.as_loss_weights()
     cfg = step_config_from_opt(opt, no_objects)
-    train_step = build_train_step(model, optimizer, cfg, loss_weights)
-    eval_step = build_eval_step(model, cfg, loss_weights, pose_validation=False)
-    eval_pose_step = build_eval_step(model, cfg, loss_weights, pose_validation=True)
+    train_step = build_train_step(model, optimizer, cfg, loss_weights, data_parallel)
+    eval_step = build_eval_step(model, cfg, loss_weights, pose_validation=False, data_parallel=data_parallel)
+    eval_pose_step = build_eval_step(model, cfg, loss_weights, pose_validation=True, data_parallel=data_parallel)
+
+    def write(name, text, mode="a"):
+        if main_rank:
+            with open(os.path.join(opt.outf, name), mode) as f:
+                f.write(text)
 
     for name, hdr in (
         ("loss_train.csv", "epoch,batchid,loss,mask_loss,vertex_loss,proxy_loss,keypoint_loss,"
@@ -350,22 +466,19 @@ def _train(opt, dev, trainingdata, train_batches, testingdata, test_batches, obj
                           "mask_loss_weight,vertex_loss_weight,proxy_loss_weight, kp_loss_weight\n"),
         ("train_summary.csv", "epoch,learning_rate,loss,mask_loss,vertex_loss,proxy_loss,keypoint_loss\n"),
     ):
-        with open(os.path.join(opt.outf, name), "w") as f:
-            f.write(hdr)
-    with open(os.path.join(opt.outf, "test_summary.csv"), "w") as f:
-        f.write("epoch,learning_rate,loss,mask_loss,vertex_loss,proxy_loss,keypoint_loss"
-                + "".join(f",2d_{o}" for o in objectsofinterest) + "".join(f",3d_{o}" for o in objectsofinterest)
-                + "\n")
+        write(name, hdr, "w")
+    write("test_summary.csv", "epoch,learning_rate,loss,mask_loss,vertex_loss,proxy_loss,keypoint_loss"
+          + "".join(f",2d_{o}" for o in objectsofinterest) + "".join(f",3d_{o}" for o in objectsofinterest) + "\n",
+          "w")
 
-    generator = torch.Generator(device=dev).manual_seed(opt.manualseed)
+    generator = torch.Generator(device=dev).manual_seed(opt.manualseed)  # the same draws on every rank
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def log_batch(namefile, epoch, batch_idx, losses):
-        with open(os.path.join(opt.outf, namefile), "a") as f:
-            f.write("{}, {},{:.15f},{:.7f},{:.7f},{:.7f},{:.7f},{:.4f},{:.4f},{:.4f},{:.4f}\n".format(
-                epoch, batch_idx + 1, losses[0], losses[1], losses[2], losses[3], losses[4],
-                loss_handler.mask_loss_weight, loss_handler.vertex_loss_weight, loss_handler.proxy_loss_weight,
-                loss_handler.kp_loss_weight))
+        write(namefile, "{}, {},{:.15f},{:.7f},{:.7f},{:.7f},{:.7f},{:.4f},{:.4f},{:.4f},{:.4f}\n".format(
+            epoch, batch_idx + 1, losses[0], losses[1], losses[2], losses[3], losses[4],
+            loss_handler.mask_loss_weight, loss_handler.vertex_loss_weight, loss_handler.proxy_loss_weight,
+            loss_handler.kp_loss_weight))
 
     train_images, train_seconds = 0, 0.0
     for epoch in range(start_epoch, opt.epochs + 1):
@@ -382,28 +495,33 @@ def _train(opt, dev, trainingdata, train_batches, testingdata, test_batches, obj
                 log_batch("loss_train.csv", epoch, b_idx, loss_np)
             pending.clear()
 
+        # --profile_dir: steps min(10, n - 1) to +5 of the first epoch's n, clamped for short epochs, as JAX traces
+        first = min(10, max(train_batches - 1, 0))
+        profiler = ProfileWindow(getattr(opt, "profile_dir", None) if epoch == start_epoch and main_rank else None,
+                                 first, min(first + 5, train_batches), dev, "train_trace")
         for batch_idx in range(train_batches):
+            profiler.before(batch_idx)
             batch = trainingdata.get_next()
             pending.append((batch_idx, train_step(device_batch(batch, dev), generator)))
-            train_images += batch["img"].shape[0]
+            train_images += batch["img"].shape[0] * (1 if data_parallel is None else data_parallel.world_size)
             if (batch_idx + 1) % opt.loginterval == 0:
                 flush_pending()
-                print(f"{datetime.datetime.now().time()}  Train Epoch: {epoch}, Batch idx: {batch_idx + 1}, "
-                      f"Epoch Loss: {epoch_loss[0] / (batch_idx + 1):.15f}")
-                print(f"Time {time.time() - t0}")
+                say(f"{datetime.datetime.now().time()}  Train Epoch: {epoch}, Batch idx: {batch_idx + 1}, "
+                    f"Epoch Loss: {epoch_loss[0] / (batch_idx + 1):.15f}")
+                say(f"Time {time.time() - t0}")
                 t0 = time.time()
+        profiler.close()  # the epoch ended before the window's end (a short epoch)
         flush_pending()
         sync()
         train_seconds += time.time() - t_epoch
         epoch_loss /= max(train_batches, 1)
         lr_now = optimizer.learning_rate()
-        print("==========================")
-        print(f"== TRAINING == Finished epoch {epoch} (lr={lr_now:.7f}) with total loss: {epoch_loss[0]:.7f} "
-              f"--- mask: {epoch_loss[1]:.7f}, vector: {epoch_loss[2]:.7f}, proxy: {epoch_loss[3]:.7f}, "
-              f"keypoint: {epoch_loss[4]:.7f} ==")
-        with open(os.path.join(opt.outf, "train_summary.csv"), "a") as f:
-            f.write(f"{epoch},{lr_now},{epoch_loss[0]:.7f},{epoch_loss[1]:.7f},{epoch_loss[2]:.7f},"
-                    f"{epoch_loss[3]:.7f},{epoch_loss[4]:.7f}\n")
+        say("==========================")
+        say(f"== TRAINING == Finished epoch {epoch} (lr={lr_now:.7f}) with total loss: {epoch_loss[0]:.7f} "
+            f"--- mask: {epoch_loss[1]:.7f}, vector: {epoch_loss[2]:.7f}, proxy: {epoch_loss[3]:.7f}, "
+            f"keypoint: {epoch_loss[4]:.7f} ==")
+        write("train_summary.csv", f"{epoch},{lr_now},{epoch_loss[0]:.7f},{epoch_loss[1]:.7f},{epoch_loss[2]:.7f},"
+              f"{epoch_loss[3]:.7f},{epoch_loss[4]:.7f}\n")
 
         if testingdata is not None:
             pose_validation = epoch % opt.validationinterval == 0
@@ -420,46 +538,62 @@ def _train(opt, dev, trainingdata, train_batches, testingdata, test_batches, obj
                     for row, i in enumerate((0, 1, 2, 7, 4, 5)):  # valid 2d, 3d, gt count, fp (row 7), err 2d, 3d
                         acc[row] += ps[i]
             epoch_loss /= max(test_batches, 1)
-            print(f"== VALIDATION == Finished epoch {epoch} with total loss: {epoch_loss[0]:.7f} "
-                  f"--- mask: {epoch_loss[1]:.7f}, vector: {epoch_loss[2]:.7f}, proxy: {epoch_loss[3]:.7f}, "
-                  f"keypoint: {epoch_loss[4]:.7f} ==")
+            say(f"== VALIDATION == Finished epoch {epoch} with total loss: {epoch_loss[0]:.7f} "
+                f"--- mask: {epoch_loss[1]:.7f}, vector: {epoch_loss[2]:.7f}, proxy: {epoch_loss[3]:.7f}, "
+                f"keypoint: {epoch_loss[4]:.7f} ==")
             s = (f"{epoch},{lr_now},{epoch_loss[0]:.7f},{epoch_loss[1]:.7f},{epoch_loss[2]:.7f},"
                  f"{epoch_loss[3]:.7f},{epoch_loss[4]:.7f}")
             if pose_validation:
                 with np.errstate(divide="ignore", invalid="ignore"):
                     err_2d = np.nan_to_num(acc[0] / acc[2])
                     err_3d = np.nan_to_num(acc[1] / acc[2])
-                print(f"2D Valid: {err_2d}")
-                print(f"2D Valid (mean): {err_2d.mean()}")
-                print(f"3D Valid: {err_3d}")
-                print(f"3D Valid (mean): {err_3d.mean()}")
+                say(f"2D Valid: {err_2d}")
+                say(f"2D Valid (mean): {err_2d.mean()}")
+                say(f"3D Valid: {err_3d}")
+                say(f"3D Valid (mean): {err_3d.mean()}")
                 s += "".join(f",{e:.4f}" for e in err_2d) + "".join(f",{e:.4f}" for e in err_3d)
-            with open(os.path.join(opt.outf, "test_summary.csv"), "a") as f:
-                f.write(s + "\n")
-        print("==========================")
+            write("test_summary.csv", s + "\n")
+        say("==========================")
 
-        if epoch % opt.saveinterval == 0:
+        if epoch % opt.saveinterval == 0 and main_rank:
             save_checkpoint(checkpoint_path, model, optimizer, epoch)
-            save_weights_npz(os.path.join(frozen_path, "result_w.npz"), model)
-            print(f"the .h5 export is not ported yet (ROADMAP queue 1); wrote {os.path.join(frozen_path, 'result_w.npz')}")
+            npz = os.path.join(frozen_path, "result_w.npz")
+            save_weights_npz(npz, model)
+            if h5py_available():
+                export_keras_h5(os.path.join(frozen_path, "result_w.h5"), model)
+            else:
+                say(f"h5py is not installed: wrote {npz} and no .h5")
 
-    save_checkpoint(checkpoint_path, model, optimizer, opt.epochs)
+    if main_rank:
+        save_checkpoint(checkpoint_path, model, optimizer, opt.epochs)
     step = optimizer.param_groups[0]["count"]
     if train_images:
-        print(f"train: {train_images} images in {train_seconds:.2f}s of train epochs ({train_images / train_seconds:.2f} "
-              f"img/s, host loader and logging included) on {dev}; {step} optimizer steps in all")
-    print("end:", datetime.datetime.now().time())
+        say(f"train: {train_images} images in {train_seconds:.2f}s of train epochs ({train_images / train_seconds:.2f} "
+            f"img/s, host loader and logging included) on {dev}"
+            + ("" if data_parallel is None else f" and {data_parallel.world_size - 1} more ranks")
+            + f"; {step} optimizer steps in all")
+    say("end:", datetime.datetime.now().time())
     return TrainState(model=model, optimizer=optimizer, step=step)
 
 
 def main(argv=None):
-    """``python -m casapose_tpu_torch.train``: the flags of ``train_casapose.py``, plus ``--device``."""
+    """``python -m casapose_tpu_torch.train``: the flags of ``train_casapose.py``, plus ``--device``. Under
+    ``torchrun`` each process joins the group that its environment describes and trains on its card."""
     from casapose_tpu_torch.utils.config import parse_config
 
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args, rest = pre.parse_known_args(argv)
-    run_training(parse_config(rest), device=args.device)
+    opt = parse_config(rest)
+    if "WORLD_SIZE" not in os.environ:  # not launched by torchrun
+        run_training(opt, device=args.device)
+        return 0
+    resolve_device(args.device)
+    data_parallel = init_data_parallel(args.device)
+    try:
+        run_training(opt, device=args.device, data_parallel=data_parallel)
+    finally:
+        shutdown()
     return 0
 
 

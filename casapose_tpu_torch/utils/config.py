@@ -44,8 +44,8 @@ def build_parser():
     parser.add_argument("--confidence_filter_estimates", type=str2bool, default=True, help="apply connected component analysis and choose largest")
     parser.add_argument(
         "--profile_dir", default=None,
-        help="write a jax.profiler trace (XPlane, viewable in TensorBoard/xprof) covering steps 10-15 "
-        "of training or the first 5 eval batches",
+        help="write a torch.profiler trace (CPU and CUDA activity, a Chrome trace <dir>/train_trace.json "
+        "or eval_trace.json) covering steps 10-15 of the first training epoch or eval batches 1-5",
     )
     parser.add_argument(
         "--ransac_rounds", type=int, default=20,
@@ -92,8 +92,8 @@ def build_parser():
         "--remat",
         type=str2bool,
         default=False,
-        help="rematerialize the network forward in the backward pass (jax.checkpoint): lower peak "
-        "HBM (larger per-chip batches) for ~1 extra forward of recompute",
+        help="rematerialize the network forward in the backward pass (torch.utils.checkpoint): lower peak "
+        "device memory (larger per-card batches) for ~1 extra forward of recompute",
     )
     parser.add_argument(
         "--batchsize_test",
@@ -152,9 +152,10 @@ def build_parser():
         "--matmul_precision",
         default="highest",
         choices=["default", "high", "highest"],
-        help="XLA matmul/conv precision for train/eval steps. The TF reference computes in float32; "
-        "TPU's 'default' uses bf16 inputs, which breaks <0.1%% accuracy parity. 'high' is bf16x3 "
-        "(near-f32, faster); 'highest' is full float32.",
+        help="float32 matmul and convolution precision of the train and eval steps, as XLA's GPU backend "
+        "reads the JAX flag: 'highest' (the default, the TF reference's float32) turns TF32 off in cuBLAS "
+        "and cuDNN; 'high' and 'default' turn it on (tensor-core TF32, a 10-bit mantissa: faster, about "
+        "three decimal digits). The pose and voting numerics stay float32 either way.",
     )
     parser.add_argument("--batchsize", type=int, default=32, help="input batch size")
     parser.add_argument("--imagesize", nargs="+", type=int, default=[448], help="height / width of the network input")

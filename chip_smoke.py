@@ -95,7 +95,28 @@ Phases, one line each with its seconds:
  17. train harness: run_training (python -m casapose_tpu_torch.train's
      driver) on a written 480x640, 8-object scene at 448x448 crops: 2 epochs
      with pose validation (the PnP kernel) and a checkpoint each, then a
-     resume from step_2 for a third; the harness's own lines and img/s.
+     resume from step_2 for a third; the harness's own lines and img/s;
+ 18. precision: --matmul_precision high (TF32 in cuBLAS and cuDNN) against
+     highest: the config_8 train step at float32 batch 4 (30 steps each:
+     step ms, the forward / backward / optimizer split, aten::bmm's device
+     time, the loss within 0.1% of highest's at the first step and 1%
+     over the last 5) and the float32 inference step at batch 32
+     (ms/image, its kernels counted, the network's output on one class
+     mask within 1e-2 of its max from highest's);
+ 19. remat: the float32 batch-8 train step with --remat against without,
+     one step from the same weights with cuDNN's deterministic algorithms
+     (losses and running statistics at rtol 1e-5, atol 1e-6, gradients and
+     weights as compare_train_steps says, a second run without remat for
+     the run-to-run spread); step ms and peak memory of both;
+ 20. ddp: the trainer's data-parallel path (build_train_step with a NCCL
+     group of world size 1 on a free port) against the same step without
+     it, and its cost per step; with two cards or more, two ranks against
+     one at the same global batch;
+ 21. harness options on a written 480x640 scene: run_training with the
+     expansion surgery from a port-written 4-object backup .npz (the copied
+     rows bit for bit), --save_debug_batch, --profile_dir (a trace of CUDA
+     kernels), and run_evaluation with --save_eval_batches 1 --profile_dir
+     (the visual files, the PnP kernel in the trace); h5py's absence said.
 Then a "kernels" JSON line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -110,6 +131,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -1178,19 +1200,19 @@ def profile_step(fn, iters, top=8):
     return busy, wall, rank(on_device), rank(ops)
 
 
-def train_step_split_ms(model, optimizer, cfg, lw, batch, gen, n):
+def train_step_split_ms(model, optimizer, cfg, lw, batch, gen, n, precision="highest"):
     """ms of forward (+ losses and BatchNorm statistics), backward and optimizer, CUDA events around each part of
-    ``n`` steps run as build_train_step runs them."""
+    ``n`` steps run as build_train_step runs them (at ``precision``, --matmul_precision)."""
     import torch
 
-    from casapose_tpu_torch.core.numerics import f32_precision
+    from casapose_tpu_torch.core.numerics import matmul_precision
     from casapose_tpu_torch.train import forward_and_loss
 
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n)]
     for e in ev:
         e[0].record()
         optimizer.zero_grad(set_to_none=True)
-        with f32_precision():
+        with matmul_precision(precision):
             losses, _ = forward_and_loss(model, batch, cfg, lw, train=True, generator=gen)
             e[1].record()
             losses[0].backward()
@@ -1260,6 +1282,7 @@ def phase_train_steps(dev, kernels):
     say("train", t0, f"bf16 b8 against f32 b8: first-step total loss {lb[0]:.5f} / {lf[0]:.5f} ({first:.3%}, band 3%), "
         f"mean of the last 5 {lb[-5:].mean():.5f} / {lf[-5:].mean():.5f} ({last:.3%}, band 15%); per image bf16 "
         f"{results['train step bf16 b8']['step_ms'] / 8:.3f} ms, f32 {results['train step f32 b8']['step_ms'] / 8:.3f} ms")
+    return {label: r["step_ms"] for label, r in results.items()}
 
 
 def plant_train_keypoints(batch, coords, seed=5, noise_px=0.0, depth=(0.75, 0.85)):
@@ -1463,6 +1486,448 @@ def phase_train_harness(dev, kernels):
         say("train harness", t0, "2 epochs + a resumed third, pose validation each epoch, checkpoints "
             f"{ckpt}, {state.step} optimizer steps after the resume; launches "
             f"{dict((n, fn.launches) for n, fn in counters.items())}; " + " | ".join(keep))
+
+
+# Phases 18-21: the options of the harnesses (--matmul_precision, --remat, data parallelism, the harness options).
+
+
+def op_device_ms(fn, iters, name):
+    """Device ms per ``fn()`` of the kernels that operator ``name`` launches (torch.profiler, after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev_time = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))  # noqa: E731
+    return sum(dev_time(e) for e in prof.key_averages()
+               if e.key == name and e.device_type != torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+
+def one_train_step(opt, dev, host, seed=0, data_parallel=None, **cfg_changes):
+    """One config_8 train step from the weights of ``seed`` on the host batch ``host``: (losses, state after the step,
+    gradients, (model, optimizer, cfg, lw, step, batch, generator)) for timing."""
+    import dataclasses
+
+    import torch
+
+    from casapose_tpu_torch.train import build_train_step, device_batch
+
+    model, optimizer, cfg, lw = train_setup(opt, dev, seed=seed)
+    cfg = dataclasses.replace(cfg, **cfg_changes)
+    step = build_train_step(model, optimizer, cfg, lw, data_parallel=data_parallel)
+    batch = device_batch(host, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = step(batch, gen).cpu().numpy()
+    state = {k: v.detach().cpu().clone().numpy() for k, v in model.state_dict().items()}
+    grads = {n: p.grad.detach().cpu().clone().numpy() for n, p in model.named_parameters()}
+    return losses, state, grads, (model, optimizer, cfg, lw, step, batch, gen)
+
+
+def compare_train_steps(label, ref, got, lr, rtol=1e-5, atol=1e-6, grad_tol=1e-4):
+    """Hold one train step (losses, state after it, gradients) against another: the losses and the running statistics
+    at rtol/atol (tests/test_remat.py's 1e-5 / 1e-6), each gradient within grad_tol of its tensor's max, and each
+    weight within what the first AdamTF update, u(g) = -lr g / (|g| + eps / sqrt(1 - b2)), makes of that gradient
+    agreement plus float32 rounding (4 ulps of lr, 2 of the weight). The bilinear upsampling's backward accumulates
+    with atomics on the card (no deterministic implementation), so gradients differ in their last bits between any
+    two runs, and the first Adam step moves a weight whose gradient is near zero by up to 2 lr whichever way its sign
+    falls: weights are held through that map, not at rtol 1e-5. Returns a summary dict."""
+    (l_ref, s_ref, g_ref), (l_got, s_got, g_got) = ref, got
+    np.testing.assert_allclose(l_got, l_ref, rtol=rtol, atol=atol, err_msg=f"{label}: losses")
+    grad_err, plain_misses = 0.0, 0
+    for name, ref_v in s_ref.items():
+        v = s_got[name]
+        if name.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(v, ref_v, rtol=rtol, atol=atol, err_msg=f"{label}: {name}")
+            continue
+        g = g_ref[name].astype(np.float64)
+        scale = max(np.abs(g).max(), 1e-30)
+        grad_err = max(grad_err, float(np.abs(g_got[name] - g).max() / scale))
+        delta = grad_tol * scale
+        u = lambda x: -lr * x / (np.abs(x) + 1e-7 / np.sqrt(1.0 - 0.999))  # noqa: E731
+        bound = (np.maximum(np.abs(u(g + delta) - u(g)), np.abs(u(g - delta) - u(g))) + 4 * np.spacing(np.float32(lr))
+                 + 2 * np.spacing(np.abs(ref_v)))
+        if not np.all(np.abs(v - ref_v) <= bound):
+            raise AssertionError(f"{label}: {name} moved apart by {np.abs(v - ref_v).max():.3g}, beyond the AdamTF map "
+                                 "of the gradients' agreement")
+        plain_misses += int(np.sum(np.abs(v - ref_v) > atol + rtol * np.abs(ref_v)))
+    if grad_err > grad_tol:
+        raise AssertionError(f"{label}: gradients {grad_err:.3g} of their max apart (tolerance {grad_tol})")
+    return {"loss_err": float(np.max(np.abs(l_got - l_ref) / np.maximum(np.abs(l_ref), 1e-30))), "grad_err": grad_err,
+            "weights_beyond_rtol": plain_misses}
+
+
+def phase_precision(dev, kernels):
+    """18. --matmul_precision: the config_8 train step (float32 batch 4, phase 15's setup) and the float32 inference
+    step at batch 32, each at highest (TF32 off) and high (TF32 in cuBLAS and cuDNN)."""
+    import torch
+
+    from casapose_tpu_torch.core.numerics import matmul_precision
+    from casapose_tpu_torch.entry import build_inference_step
+
+    t0 = time.time()
+    opt = train_opt()
+    counters = count_launches()
+    host = train_batch(4, seed=0)
+    runs = {}
+    for precision in ("highest", "high"):
+        label = f"train step f32 b4 {precision}"
+        for fn in counters.values():
+            fn.launches = 0
+        first, _, _, (model, optimizer, cfg, lw, step, batch, gen) = one_train_step(opt, dev, host,
+                                                                                   matmul_precision=precision)
+        losses = np.stack([first] + [step(batch, gen).cpu().numpy() for _ in range(TRAIN_STEPS - 1)])
+        torch.cuda.synchronize()
+        for name, fn in counters.items():
+            kernels[name]["launches_by_path"][label] = fn.launches
+        step_ms = cuda_ms(lambda: step(batch, gen), 10, warmup=0)
+        split = train_step_split_ms(model, optimizer, cfg, lw, batch, gen, 5, precision=precision)
+        bmm = op_device_ms(lambda: step(batch, gen), 3, "aten::bmm")
+        runs[precision] = {"losses": losses, "step_ms": step_ms}
+        if not np.isfinite(losses).all() or not losses[-1, 0] < losses[0, 0]:
+            raise AssertionError(f"{label}: non-finite losses, or the total loss did not fall: {losses[:, 0]}")
+        say("precision", t0, f"{label}: step {step_ms:.3f} ms ({step_ms / 4:.3f} ms/image); split "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f"; aten::bmm {bmm:.3f} ms of device time per "
+            f"step; total loss {losses[0, 0]:.5f} -> {losses[-1, 0]:.5f} over {TRAIN_STEPS} steps")
+        del model, optimizer, step, batch
+        torch.cuda.empty_cache()
+    # TF32 against float32 on the same weights and batch. The first step's total loss within 1e-3 (about TF32's
+    # epsilon, 2^-10; the card read 5e-5 in two runs) and the mean of the last 5 of 30 steps within 1% (the card
+    # read 0.066% and 0.182%: the trajectories part slowly, and the bilinear backward's atomics make each run's
+    # own). A TF32 path that computed another network would leave both.
+    hi, tf = runs["highest"]["losses"][:, 0], runs["high"]["losses"][:, 0]
+    first, last = abs(tf[0] - hi[0]) / hi[0], abs(tf[-5:].mean() - hi[-5:].mean()) / hi[-5:].mean()
+    if not (first <= 1e-3 and last <= 1e-2):
+        raise AssertionError(f"TF32 loss left its band around float32's: first step {first:.3%}, last 5 {last:.3%}")
+    say("precision", t0, f"high against highest, train step f32 b4: first-step total loss {tf[0]:.5f} / {hi[0]:.5f} "
+        f"({first:.3%}, band 0.1%), mean of the last 5 {tf[-5:].mean():.5f} / {hi[-5:].mean():.5f} ({last:.3%}, band "
+        f"1%); step {runs['high']['step_ms']:.3f} / {runs['highest']['step_ms']:.3f} ms "
+        f"({runs['highest']['step_ms'] / runs['high']['step_ms']:.3f}x)")
+
+    rng = np.random.default_rng(0)
+    b = 32
+    img = torch.from_numpy(rng.normal(size=(b, H, W, 3)).astype(np.float32)).to(dev)
+    kp3 = torch.from_numpy(rng.uniform(-0.05, 0.05, (b, OBJECTS, 1, K_POINTS, 3)).astype(np.float32)).to(dev)
+    cam = torch.tensor(CAMERA, device=dev).expand(b, 3, 3).contiguous()
+    points, outputs = {}, {}
+    for precision in ("highest", "high"):
+        label = f"inference step f32 b32 {precision}"
+        step, model = build_inference_step(OBJECTS, K_POINTS, H, W, device="cuda", precision=precision,
+                                           generator=torch.Generator().manual_seed(0))
+        for fn in counters.values():
+            fn.launches = 0
+        poses, points[precision] = step(img, kp3, cam, return_points=True)
+        torch.cuda.synchronize()
+        for name, fn in counters.items():
+            kernels[name]["launches_by_path"][label] = fn.launches
+        if counters["voting"].launches == 0 or counters["pnp"].launches == 0 or not torch.isfinite(poses).all():
+            raise AssertionError(f"{label}: launches {[fn.launches for fn in counters.values()]}, poses finite "
+                                 f"{bool(torch.isfinite(poses).all())}")
+        with torch.no_grad(), matmul_precision(precision):
+            if precision == "highest":  # decoder 2's class mask, given to both runs (see below)
+                mask = model(img[:4])[..., : OBJECTS + 1]
+            outputs[precision] = model(img[:4], mask).float()
+        ms = cuda_ms(lambda: step(img, kp3, cam), 3, warmup=1)
+        apart = ""
+        if precision == "high":
+            # The network's output against highest's, relative to its largest value, with decoder 2 conditioned
+            # on one class mask (highest's argmax): the network is then continuous in its inputs. Left to take
+            # its own argmax, TF32 moves ties between random logits, and decoder 2's output changes wholesale
+            # where a pixel's class does (0.767 of its max, measured); the voted points follow, by hundreds of
+            # pixels where LS voting's 2x2 systems are near singular, so they are not held. Band 1e-2, a few times
+            # what TF32's 10-bit mantissa leaves after the network's convolutions.
+            out_err = ((outputs["high"] - outputs["highest"]).abs().max() / outputs["highest"].abs().max()).item()
+            if not out_err <= 1e-2:
+                raise AssertionError(f"{label}: the network's output {out_err:.3g} of its max from highest's")
+            apart = (f"; network output on one class mask {out_err:.3g} of its max from highest's (band 1e-2); "
+                     f"voted points {(points['high'] - points['highest']).abs().max().item():.3g} px (max) apart")
+        say("precision", t0, f"{label}: {ms:.3f} ms/step, {ms / b:.3f} ms/image{apart}")
+        del step, model
+        torch.cuda.empty_cache()
+
+
+def phase_remat(dev, kernels):
+    """19. --remat: the config_8 float32 batch-8 train step with the network forward under torch.utils.checkpoint,
+    against the same step without it and against a second run without it; step ms and peak memory of both."""
+    import torch
+
+    t0 = time.time()
+    opt = train_opt()
+    host = train_batch(8, seed=0)
+    counters = count_launches()
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False  # deterministic cuDNN algorithms
+    try:
+        off = one_train_step(opt, dev, host)
+        off2 = one_train_step(opt, dev, host)
+        for fn in counters.values():
+            fn.launches = 0
+        on = one_train_step(opt, dev, host, remat=True)
+        torch.cuda.synchronize()
+        for name, fn in counters.items():
+            kernels[name]["launches_by_path"]["train step f32 b8 remat"] = fn.launches
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    lr = off[3][1].learning_rate(0)
+    spread = compare_train_steps("remat off, twice", off[:3], off2[:3], lr)
+    remat = compare_train_steps("remat on against off", off[:3], on[:3], lr)
+    stats_equal = all(np.array_equal(on[1][k], off[1][k]) for k in off[1] if k.endswith(("running_mean", "running_var")))
+    say("remat", t0, f"f32 b8, one step from the same weights: remat on against off: losses {remat['loss_err']:.3g} "
+        f"apart (rtol 1e-5), running statistics {'equal' if stats_equal else 'within rtol 1e-5'} (updated once), "
+        f"gradients {remat['grad_err']:.3g} of their max apart, {remat['weights_beyond_rtol']} weights beyond rtol 1e-5 "
+        f"(held through the AdamTF map); two runs without remat: losses {spread['loss_err']:.3g}, gradients "
+        f"{spread['grad_err']:.3g}, {spread['weights_beyond_rtol']} weights beyond rtol 1e-5")
+    del off, off2, on
+    torch.cuda.empty_cache()
+    for remat_on in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, _, _, (model, optimizer, cfg, lw, step, batch, gen) = one_train_step(opt, dev, host, remat=remat_on)
+        ms = cuda_ms(lambda: step(batch, gen), 5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        say("remat", t0, f"f32 b8 remat {'on' if remat_on else 'off'}: step {ms:.3f} ms ({ms / 8:.3f} ms/image), "
+            f"peak memory {peak / 2**30:.2f} GiB")
+        del model, optimizer, step, batch
+        torch.cuda.empty_cache()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_rank(rank, port, world, device_type, host, out_dir):
+    """One rank of phase 20's multi-rank check: its rows of the global batch through the data-parallel train step."""
+    from casapose_tpu_torch.parallel.mesh import init_data_parallel, shutdown
+
+    dp = init_data_parallel(device_type, rank=rank, world_size=world, local_rank=rank,
+                            init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        rows = dp.rows(host["img"].shape[0])
+        losses, state, grads, _ = one_train_step(train_opt(), dp.device, {k: v[rows] for k, v in host.items()},
+                                                 data_parallel=dp)
+    finally:
+        shutdown()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), losses=losses, **{f"s/{k}": v for k, v in state.items()},
+             **{f"g/{k}": v for k, v in grads.items()})
+
+
+def multi_rank_against_one(world, device_type, host, ref, lr):
+    """``world`` ranks (spawned processes, one card each) at the global batch ``host`` against ``ref``, one process on
+    all of it: the comparison summary of each rank."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(ddp_rank, args=(free_port(), world, device_type, host, out_dir), nprocs=world, join=True,
+                           start_method="spawn")
+        ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
+        out = []
+        for r in ranks:
+            got = (r["losses"], {k[2:]: r[k] for k in r.files if k.startswith("s/")},
+                   {k[2:]: r[k] for k in r.files if k.startswith("g/")})
+            # rtol 3e-4 on the losses (tests/test_dp_invariance.py's) and gradients within 1e-3 of their max: the
+            # global BatchNorm moments and DDP's mean sum in another order (2e-4 in a CPU rehearsal with gloo)
+            out.append(compare_train_steps(f"{world} ranks against one", ref, got, lr, rtol=3e-4, atol=1e-6, grad_tol=1e-3))
+    return out
+
+
+def phase_ddp(dev, kernels, phase15_ms):
+    """20. The trainer's data-parallel path: a NCCL group of world size 1 (an in-process TCP store on a free port)
+    through build_train_step(..., data_parallel=...) against the same step without it; with two cards or more, two
+    ranks against one at the same global batch."""
+    import torch
+
+    from casapose_tpu_torch.parallel.mesh import init_data_parallel, shutdown
+
+    t0 = time.time()
+    opt = train_opt()
+    host = train_batch(4, seed=0)
+    counters = count_launches()
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dp = init_data_parallel("cuda", rank=0, world_size=1, local_rank=0, init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        plain = one_train_step(opt, dev, host)
+        for fn in counters.values():
+            fn.launches = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ddp = one_train_step(opt, dp.device, host, data_parallel=dp)
+            torch.cuda.synchronize()
+        strides = [str(w.message) for w in caught if "Grad strides do not match" in str(w.message)]
+        if strides:  # each gradient is a view of DDP's bucket (build_train_step): no copy, no layout mismatch
+            raise AssertionError(f"DDP copied a gradient of another layout into its bucket: {strides[0]}")
+        for name, fn in counters.items():
+            kernels[name]["launches_by_path"]["train step f32 b4 ddp"] = fn.launches
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        lr = plain[3][1].learning_rate(0)
+        same = compare_train_steps("DDP world size 1 against no DDP", plain[:3], ddp[:3], lr)
+        times = {}
+        for label, run in (("without DDP", plain), ("DDP, world size 1", ddp)):
+            _, _, _, _, step, batch, gen = run[3]
+            times[label] = cuda_ms(lambda: step(batch, gen), 10, warmup=1)
+        say("ddp", t0, f"f32 b4, a {torch.distributed.get_backend()} group of world size 1: one step against the same step "
+            f"without DDP: losses {same['loss_err']:.3g} apart, gradients {same['grad_err']:.3g} of their max, "
+            f"{same['weights_beyond_rtol']} weights beyond rtol 1e-5 (held through the AdamTF map); step "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+            + f" (DDP costs {times['DDP, world size 1'] - times['without DDP']:.3f} ms a step; phase 15's float32 "
+            f"batch-4 step {phase15_ms:.3f} ms)")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        shutdown()
+    del plain, ddp
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        ref = one_train_step(opt, dev, host)
+        summaries = multi_rank_against_one(2, "cuda", host, ref[:3], ref[3][1].learning_rate(0))
+        say("ddp", t0, "2 ranks on 2 cards against 1 at global batch 4: " + "; ".join(
+            f"rank {r}: losses {s['loss_err']:.3g}, gradients {s['grad_err']:.3g}" for r, s in enumerate(summaries)))
+    else:
+        say("ddp", t0, "one card: the two-rank check ran only on the CPU, in the tests (tests/test_torch_ddp.py, two "
+            "gloo ranks against one)")
+
+
+def phase_harness_options(dev, kernels):
+    """21. The harnesses' options on a written 480x640 scene: the expansion surgery in run_training from a
+    port-written backup with fewer objects, --save_debug_batch, --profile_dir in run_training, and run_evaluation
+    with --save_eval_batches 1 --profile_dir."""
+    import contextlib
+    import io
+
+    import torch
+
+    from casapose_tpu_torch.core.checkpoint import h5py_available, save_weights_npz
+    from casapose_tpu_torch.eval import run_evaluation
+    from casapose_tpu_torch.models.registry import get_model
+    from casapose_tpu_torch.train import run_training
+
+    t0 = time.time()
+    counters = count_launches()
+    n_images, half = 8, OBJECTS // 2
+
+    def run(fn, opt):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(opt, device=str(dev))
+        return result, buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        names = write_scene(tmp, n_images=n_images)
+        flags = ["--data", os.path.join(tmp, "data"), "--datatest", "", "--datameshes", os.path.join(tmp, "models"),
+                 "--object", ",".join(names), "--workers", "4", "--manualseed", "1", "--pretrained", "0",
+                 "--loginterval", "1"]
+
+        # The expansion surgery: a backup of 4 objects (CLADE tables drawn, so that copied rows tell) onto 8.
+        out = os.path.join(tmp, "surgery")
+        os.makedirs(os.path.join(out, "frozen_model"))
+        backup = get_model("casapose_c_gcu5", ver_dim=3 * K_POINTS, seg_dim=1 + half, device=dev,
+                           generator=torch.Generator().manual_seed(7))
+        with torch.no_grad():
+            for n in range(6, 11):
+                for w in ("gamma", "beta"):
+                    getattr(getattr(backup, f"pv_block_{n}_clade"), w).normal_()
+        save_weights_npz(os.path.join(out, "frozen_model", "backup.npz"), backup)
+        mapping = [(i, i) for i in range(1, half + 1)] + [(i, i + half) for i in range(1, half + 1)]
+        csv = os.path.join(tmp, "objects_to_copy.csv")
+        with open(csv, "w") as f:
+            f.writelines(f"{a},{b}\n" for a, b in mapping)
+        _, printed = run(run_training, train_opt(*flags, "--epochs", "0", "--copy_weights_from_backup_network", "1",
+                                                 "--objects_to_copy_list", csv, "--objects_in_input_network",
+                                                 str(half), "--load_h5_filename", "backup", "--outf", out))
+        after = torch.load(os.path.join(out, "training_checkpoints", "step_0", "state.pt"), map_location="cpu",
+                           weights_only=True)["model"]
+        src = backup.state_dict()
+        rows_in, rows_out = [0] + [a for a, _ in mapping], [0] + [b for _, b in mapping]
+        copied = [("pv_final_conv_segmentation.weight", (slice(None), 0, 0))] + [
+            (f"pv_block_{n}_clade.{w}", ()) for n in range(6, 11) for w in ("gamma", "beta")]
+        for name, tail in copied:
+            got = after[name][(rows_out,) + tail] if tail else after[name][rows_out]
+            want = src[name].cpu()[(rows_in,) + tail] if tail else src[name].cpu()[rows_in]
+            if not torch.equal(got, want):
+                raise AssertionError(f"surgery: {name} rows {rows_out} are not the backup's rows {rows_in}")
+        say("harness options", t0, f"run_training with the expansion surgery ({half} -> {OBJECTS} objects from a "
+            f"port-written backup .npz): {[ln for ln in printed.splitlines() if 'backup' in ln]}; the segmentation "
+            f"conv's rows and the 10 CLADE tables' rows {rows_out} equal the backup's {rows_in}, bit for bit")
+
+        out = os.path.join(tmp, "debug")
+        state, printed = run(run_training, train_opt(*flags, "--save_debug_batch", "1", "--outf", out))
+        dumped = sorted(os.listdir(os.path.join(out, "visual_batch")))
+        if state is not None or len(dumped) != 2 * 4:  # config_8's batch of 4: image and mask each
+            raise AssertionError(f"save_debug_batch: {state}, {dumped}")
+        say("harness options", t0, f"--save_debug_batch: {dumped}, then the trainer stopped")
+
+        for fn in counters.values():
+            fn.launches = 0
+        out, prof = os.path.join(tmp, "profiled"), os.path.join(tmp, "prof_train")
+        state, printed = run(run_training, train_opt(*flags, "--epochs", "1", "--profile_dir", prof, "--outf", out))
+        torch.cuda.synchronize()
+        for name, fn in counters.items():
+            kernels[name]["launches_by_path"]["train harness --profile_dir"] = fn.launches
+        train_kernels = trace_kernels(os.path.join(prof, "train_trace.json"))
+        if f"wrote profiler trace to {prof}" not in printed or not train_kernels:
+            raise AssertionError(f"train --profile_dir: no trace or no CUDA kernel in it ({len(train_kernels)})")
+        say("harness options", t0, f"run_training --profile_dir: {state.step} steps, the trace of its window (the "
+            f"epoch's last step, as the JAX window clamps for a 2-step epoch) lists "
+            f"{sum(train_kernels.values())} CUDA kernel launches of {len(train_kernels)} kernels, the most: "
+            + ", ".join(f"{k[:50]} x{n}" for k, n in train_kernels.most_common(3)))
+
+        for fn in counters.values():
+            fn.launches = 0
+        evalf, prof = os.path.join(tmp, "eval"), os.path.join(tmp, "prof_eval")
+        result, printed = run(run_evaluation, eval_opt(0, "--data", os.path.join(tmp, "none"), "--datatest",
+                                                       os.path.join(tmp, "data"), "--datameshes",
+                                                       os.path.join(tmp, "models"), "--object", ",".join(names),
+                                                       "--batchsize_test", "1", "--save_eval_batches", "1",
+                                                       "--profile_dir", prof, "--evalf", evalf,
+                                                       "--outf", os.path.join(tmp, "eval_out")))
+        torch.cuda.synchronize()
+        for name, fn in counters.items():
+            kernels[name]["launches_by_path"]["eval harness --save_eval_batches --profile_dir"] = fn.launches
+        eval_kernels = trace_kernels(os.path.join(prof, "eval_trace.json"))
+        pnp_in_trace = sum(n for k, n in eval_kernels.items() if "solve_pnp_kernel" in k)
+        visual = os.path.join(evalf, "visual_batch_eval_mask")
+        per_image = [d for d in os.listdir(visual) if os.path.isdir(os.path.join(visual, d))]
+        files = sorted(f for d in per_image for f in os.listdir(os.path.join(visual, d)))
+        expected = {"cuboids.png", "reprojected_keypoints.png", "proxy_summary.png"} | {
+            f"proxy_error_{i}.png" for i in range(K_POINTS)}
+        if (result["total_images"] != n_images or not pnp_in_trace or counters["pnp"].launches == 0
+                or len(per_image) != n_images or set(files) != expected
+                or len([f for f in os.listdir(visual) if f.endswith("_poses.png")]) != n_images):
+            raise AssertionError(f"eval --save_eval_batches --profile_dir: {result['total_images']} images, PnP kernel "
+                                 f"in the trace {pnp_in_trace}, {len(per_image)} image folders holding {set(files)}")
+        say("harness options", t0, f"run_evaluation --save_eval_batches 1 --profile_dir: {n_images} images, "
+            f"{len(os.listdir(visual))} entries in visual_batch_eval_mask ({len(expected)} files in each image's "
+            f"folder); the trace of batches 1-5 lists {sum(eval_kernels.values())} CUDA kernel launches, the PnP "
+            f"kernel's {pnp_in_trace} among them; launches {dict((n, fn.launches) for n, fn in counters.items())}")
+    if not h5py_available():
+        say("harness options", t0, "h5py is not installed on this machine: the .h5 import, export and ImageNet "
+            "backbone routes are held against the JAX package by the tests on the CPU (tests/test_torch_h5.py)")
+        return
+    from casapose_tpu_torch.core.checkpoint import export_keras_h5, import_keras_h5
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export_keras_h5(os.path.join(tmp, "w.h5"), backup)
+        again = get_model("casapose_c_gcu5", ver_dim=3 * K_POINTS, seg_dim=1 + half, device=dev,
+                          generator=torch.Generator().manual_seed(8))
+        n, skipped = import_keras_h5(path, again)
+    if skipped or any(not torch.equal(v, again.state_dict()[k]) for k, v in backup.state_dict().items()):
+        raise AssertionError(f".h5 round trip: {n} arrays loaded, skipped {skipped[:5]}")
+    say("harness options", t0, f"h5py imports here: the backup written as .h5 and read back, {n} arrays, bit for bit")
+
+
+def trace_kernels(path):
+    """Launch counts by kernel name of the CUDA kernels in a torch.profiler Chrome trace."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
 
 
 def main():
@@ -1697,9 +2162,14 @@ def main():
     phase_eval_paths(dev, kernels)  # 13
     phase_bf16_inference(dev, kernels, f32_times)  # 14
     torch.cuda.empty_cache()
-    phase_train_steps(dev, kernels)  # 15
+    train_ms = phase_train_steps(dev, kernels)  # 15
     phase_bpnp(dev, kernels)  # 16
     phase_train_harness(dev, kernels)  # 17
+    torch.cuda.empty_cache()
+    phase_precision(dev, kernels)  # 18
+    phase_remat(dev, kernels)  # 19
+    phase_ddp(dev, kernels, train_ms["train step f32 b4"])  # 20
+    phase_harness_options(dev, kernels)  # 21
 
     meta = {
         "voting": ("casapose_tpu_torch/csrc/voting.cu", "casapose_tpu/ops/voting_kernel.py:103"),

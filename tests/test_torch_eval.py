@@ -602,15 +602,32 @@ def test_chunked_step_equals_unchunked(step_setup, n, chunk):
 
 
 def test_unported_options_raise(step_setup):
+    """int8 inference stays refused. The visual dumps and the trace, refused before, build the step; with
+    ``--save_eval_batches`` it returns the JAX step's ``proxy_dist`` extra. Tolerance rtol 1e-4, atol 1e-2 px: each
+    distance is a difference of products of pixel coordinates (up to ~80) with direction channels that agree to
+    1e-4, which cancels near the keypoint (measured: 16 of 92,160 distances of ~1 px apart by up to 3.6e-3)."""
+    import jax.numpy as jnp
+
+    from casapose_tpu.core.checkpoint import unflatten_params
+    from casapose_tpu.eval import build_test_step as jax_build
+    from casapose_tpu.losses.losses import LossWeights as JaxWeights
+    from casapose_tpu.utils.config import parse_config as jax_parse
     from casapose_tpu_torch.eval import build_test_step
     from casapose_tpu_torch.losses.losses import LossWeights
     from casapose_tpu_torch.utils.config import parse_config
 
-    _, _, model, verts, counts = step_setup
-    for flag in (["--save_eval_batches", "1"], ["--quantized_inference", "int8"], ["--profile_dir", "prof"]):
-        opt = parse_config(_step_flags() + flag)
-        with pytest.raises(NotImplementedError):
-            build_test_step(model, opt, OC, verts, counts, LossWeights())
+    jm, flat, model, verts, counts = step_setup
+    with pytest.raises(NotImplementedError, match="int8"):
+        build_test_step(model, parse_config(_step_flags() + ["--quantized_inference", "int8"]), OC, verts, counts,
+                        LossWeights())
+    build_test_step(model, parse_config(_step_flags() + ["--profile_dir", "prof"]), OC, verts, counts, LossWeights())
+    flags = _step_flags() + ["--save_eval_batches", "1"]
+    batch = _batch(model, B)
+    got = _run_port(build_test_step(model, parse_config(flags), OC, verts, counts, LossWeights()), batch)
+    want = jax_build(jm, jax_parse(flags), OC, verts, counts, JaxWeights())(
+        unflatten_params(flat), {k: jnp.asarray(v) for k, v in batch.items()})
+    assert got["proxy_dist"].shape == (B, H, W, K)
+    np.testing.assert_allclose(got["proxy_dist"], np.asarray(want["proxy_dist"]), rtol=1e-4, atol=1e-2)
 
 
 def test_least_squares_without_confidence_is_refused_as_by_jax(step_setup):

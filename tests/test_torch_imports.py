@@ -1,9 +1,9 @@
 """casapose_tpu_torch imports neither JAX nor the JAX package, and its entry points refuse a missing card.
 
-The card's machine has no jax, flax or optax. A subprocess makes those and
-``casapose_tpu`` unimportable (``sys.modules[name] = None``), then imports
-every module of the port. The entry points default to ``device="cuda"``
-and must raise, not fall back, on a host without CUDA.
+The card's machine has no jax, flax, optax or h5py. A subprocess makes
+those and ``casapose_tpu`` unimportable (``sys.modules[name] = None``), then
+imports every module of the port. The entry points default to
+``device="cuda"`` and must raise, not fall back, on a host without CUDA.
 """
 
 import os
@@ -14,13 +14,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _POISONED_IMPORT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "casapose_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "casapose_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import casapose_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(casapose_tpu_torch.__path__, "casapose_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "casapose_tpu") and sys.modules[m] is not None)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "h5py", "casapose_tpu") and sys.modules[m] is not None)
 assert not leaked, leaked
 eval_slice = {"casapose_tpu_torch." + m for m in (
     "eval", "core.checkpoint", "data.mesh", "data.ndds", "data.pipeline", "losses.losses", "ops.vectorfield",
@@ -29,6 +29,11 @@ assert eval_slice <= set(names), sorted(eval_slice - set(names))
 train_slice = {"casapose_tpu_torch." + m for m in (
     "train", "core.optimizer", "data.augment", "data.color", "losses.schedules")}
 assert train_slice <= set(names), sorted(train_slice - set(names))
+harness_slice = {"casapose_tpu_torch." + m for m in (
+    "parallel.mesh", "utils.visualization", "utils.profiler", "ops.warp")}
+assert harness_slice <= set(names), sorted(harness_slice - set(names))
+from casapose_tpu_torch.core.checkpoint import h5py_available
+assert not h5py_available()
 print(len(names))
 """
 
@@ -62,7 +67,7 @@ def _run(code):
 def test_every_module_imports_without_jax_or_the_jax_package():
     proc = _run(_POISONED_IMPORT)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 34  # every module of the slices was walked
+    assert int(proc.stdout.split()[-1]) >= 39  # every module of the slices was walked
 
 
 def test_entry_points_raise_without_cuda():

@@ -46,9 +46,15 @@ def trained(tmp_path_factory):
              "--workers", "2", "--prefetch", "2", "--manualseed", "3", "--outf", str(root / "out")]
     from casapose_tpu_torch.train import run_training
 
-    state1, first = _run(run_training, [*flags, "--epochs", "1"])
-    state2, second = _run(run_training, [*flags, "--epochs", "2"])
+    with pytest.MonkeyPatch.context() as mp:  # config_8 asks for the ImageNet backbone: no file anywhere here
+        mp.delenv("CASAPOSE_IMAGENET_H5", raising=False)
+        mp.setenv("HOME", str(root / "home"))
+        state1, first = _run(run_training, [*flags, "--epochs", "1"])
+        state2, second = _run(run_training, [*flags, "--epochs", "2"])
     assert (state1.step, state2.step) == (2, 4)
+    from casapose_tpu_torch.core.checkpoint import save_weights_npz
+
+    save_weights_npz(str(root / "backup.npz"), state2.model)
     return root, object_names(), first, second
 
 
@@ -57,7 +63,8 @@ def test_resume_trains_only_the_next_epoch(trained):
     assert "Finished epoch 1 " in first and "restored checkpoint" not in first
     assert "restored checkpoint at epoch 1" in second
     assert "Finished epoch 2" in second and "Finished epoch 1 " not in second
-    assert "the ImageNet backbone import (.h5) is not ported yet" in first
+    assert "imagenet weights unavailable for resnet18" in first  # the JAX trainer's offline lines
+    assert "pretrained=1 but imagenet weights unavailable; training from random init" in first
     with open(root / "out" / "train_summary.csv") as f:
         rows = [r.split(",") for r in f.read().strip().splitlines()]
     assert [r[0] for r in rows[1:]] == ["2"] and np.isfinite(float(rows[1][2]))
@@ -85,11 +92,35 @@ def test_eval_harness_reads_the_ports_checkpoint_and_refuses_orbax(trained):
 
 @pytest.mark.parametrize("flag", [("--remat", "1"), ("--profile_dir", "prof"), ("--save_debug_batch", "1"),
                                   ("--copy_weights_from_backup_network", "1")])
-def test_unported_options_raise(flag):
-    """What the trainer does not run yet raises and names its ROADMAP queue, before any work."""
-    from casapose_tpu_torch.train import run_training
-    from casapose_tpu_torch.utils.config import parse_config
+def test_unported_options_raise(trained, flag, tmp_path):
+    """The options that the trainer refused before (naming its ROADMAP queue) now run on the scene:
+    ``--remat`` and ``--profile_dir`` train an epoch (the trace written), ``--save_debug_batch`` writes the first
+    batch and stops, and the weight surgery reads its backup network (here the ``.npz`` of the resumed run, of the
+    same objects)."""
+    import shutil
 
-    opt = parse_config(["--object", "obj_000001", *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        run_training(opt, device="cpu")
+    from casapose_tpu_torch.train import run_training
+
+    root, objects, _, _ = trained
+    out = tmp_path / "out"
+    flags = ["-c", os.path.join(ROOT, "configs", "config_8.ini"), "--objects_to_copy_list", "",
+             "--data", str(root / "data"), "--datatest", "", "--datameshes", str(root / "models"),
+             "--object", ",".join(objects), "--imagesize", "32", "32", "--batchsize", "2", "--epochs", "1",
+             "--train_validation_split", "1.0", "--workers", "1", "--pretrained", "0", "--outf", str(out), *flag]
+    if flag[0] == "--profile_dir":
+        flags[-1] = str(tmp_path / "prof")
+    if flag[0] == "--copy_weights_from_backup_network":
+        (out / "frozen_model").mkdir(parents=True)
+        shutil.copy(root / "backup.npz", out / "frozen_model" / "backup.npz")
+        flags += ["--load_h5_filename", "backup", "--objects_in_input_network", str(len(objects))]
+    state, printed = _run(run_training, flags)
+    if flag[0] == "--save_debug_batch":
+        assert state is None and "saved debug batch; exiting" in printed
+        assert sorted(os.listdir(out / "visual_batch")) == ["0000_img.png", "0000_mask.png", "0001_img.png",
+                                                           "0001_mask.png"]
+        return
+    assert state.step == 2 and "Finished epoch 1" in printed
+    if flag[0] == "--profile_dir":
+        assert (tmp_path / "prof" / "train_trace.json").is_file()
+    if flag[0] == "--copy_weights_from_backup_network":
+        assert "loaded backup network (148 arrays)" in printed
