@@ -7,7 +7,9 @@ raw_output=out)`` and ``poses_pnp``; ``dtype=torch.bfloat16`` is the bench's
 mixed-precision network (voting and PnP stay float32). Any CASAPose variant
 and backbone of the registry runs the same way; the PVNet models vote by
 RANSAC over their per-object fields instead. On the card the voting sums
-and the PnP solve are the hand-written CUDA kernels.
+and the PnP solve are the hand-written CUDA kernels. ``quantized="int8"``
+runs the network's convolutions int8-quantized (``ops/quant.py``), as
+``bench.py``'s ``CASAPOSE_BENCH_QUANT=int8``.
 """
 
 import torch
@@ -15,6 +17,7 @@ import torch
 from casapose_tpu_torch.core.device import resolve_device
 from casapose_tpu_torch.core.numerics import matmul_precision
 from casapose_tpu_torch.models.registry import PVNET_NAMES, get_model
+from casapose_tpu_torch.ops.quant import quantized_apply
 from casapose_tpu_torch.ops.voting import ls_voting
 from casapose_tpu_torch.pose.evaluation import poses_pnp
 from casapose_tpu_torch.pose.ransac import ransac_voting_layer_all_masks
@@ -23,7 +26,8 @@ FLAGSHIP = "casapose_c_gcu5"
 
 
 def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generator=None, modelname=FLAGSHIP,
-                         base_model="resnet18", dtype=torch.float32, ransac_rounds=20, precision="highest"):
+                         base_model="resnet18", dtype=torch.float32, ransac_rounds=20, precision="highest",
+                         quantized=None):
     """Build the inference step and its model.
 
     Args:
@@ -38,12 +42,16 @@ def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generat
       ransac_rounds: RANSAC rounds (PVNet models only).
       precision: ``--matmul_precision``: "highest" (TF32 off, the default) or
         "high" / "default" (TF32 in the network's convolutions and matmuls).
+      quantized: None, or "int8" for int8-quantized convolutions; with
+        ``dtype=torch.bfloat16`` their rescaled outputs are cast to bfloat16.
     Returns:
       (step, model); ``step(img [b, h, w, 3], keypoints3d [b, oc, 1, k, 3],
       camera [b, 3, 3]) -> poses [b, oc, 1, 3, 4]``, all float32 on
       ``device``. ``step(..., return_points=True)`` also returns the voted
       keypoints [b, oc, k, 2], (y, x).
     """
+    if quantized not in (None, "int8"):
+        raise ValueError(f"quantized={quantized!r}: expected None or 'int8'")
     dev = resolve_device(device)
     seg_dim = 1 + no_objects
     pvnet = modelname in PVNET_NAMES
@@ -72,7 +80,7 @@ def build_inference_step(no_objects=8, k=9, h=480, w=640, device="cuda", generat
         if tuple(img.shape[1:]) != (h, w, 3):
             raise ValueError(f"step expects images [b, {h}, {w}, 3], got {tuple(img.shape)}")
         with matmul_precision(precision):
-            out = model(img)
+            out = quantized_apply(model, img) if quantized else model(img)
             coords = vote(out)
             poses = poses_pnp(coords, out[..., :seg_dim], keypoints3d, camera, no_objects)
         return (poses, coords) if return_points else poses

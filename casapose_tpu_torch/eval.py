@@ -21,8 +21,9 @@ a ``torch.profiler`` Chrome trace of batches 1-5 under ``--profile_dir``).
 It runs on the card unless ``--device cpu`` is given, at
 ``--matmul_precision``. Weights come from the JAX package's ``.npz`` export,
 a Keras ``.h5`` (where h5py imports) or a checkpoint of ``python -m
-casapose_tpu_torch.train``. Refused: int8 inference and orbax checkpoints
-(the JAX package's ``save_weights_npz`` exports them).
+casapose_tpu_torch.train``. ``--quantized_inference int8`` runs the
+network's convolutions int8-quantized (``ops/quant.py``). Refused: orbax
+checkpoints (the JAX package's ``save_weights_npz`` exports them).
 """
 
 import argparse
@@ -46,6 +47,7 @@ from casapose_tpu_torch.core.numerics import matmul_precision
 from casapose_tpu_torch.data.pipeline import prepare_device_batch
 from casapose_tpu_torch.losses.losses import LossWeights, composite_loss, keypoint_reprojection_loss, proxy_voting_dist
 from casapose_tpu_torch.models.registry import build_model_from_opt
+from casapose_tpu_torch.ops.quant import quantized_apply
 from casapose_tpu_torch.ops.vectorfield import get_all_vectorfields
 from casapose_tpu_torch.ops.voting import ls_voting
 from casapose_tpu_torch.pose.evaluation import estimate_and_evaluate_poses, evaluate_pose_estimates
@@ -53,9 +55,7 @@ from casapose_tpu_torch.utils.profiler import ProfileWindow
 
 
 def _check_ported(opt):
-    """Raise for the option of the JAX harness that the port does not run (int8 inference)."""
-    if getattr(opt, "quantized_inference", "") == "int8":
-        raise NotImplementedError("casapose_tpu_torch.eval: not ported yet: quantized_inference int8")
+    """Raise for a combination the JAX harness cannot run either."""
     if opt.estimate_coords and not opt.estimate_confidence:
         # The JAX step passes confidence=None to ls_voting here and fails in its softplus (a TypeError).
         raise ValueError("casapose_tpu_torch.eval: least-squares voting (estimate_coords 1) weighs the votes with "
@@ -100,7 +100,10 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
             target_vertex = batch["keypoints2d"]
             target_dirs = get_all_vectorfields(target_seg, target_vertex, batch["seg"], separated)
             gt_seg_input = target_seg if opt.train_vectors_with_ground_truth else None
-            output_net = model(img, gt_seg_input)
+            if getattr(opt, "quantized_inference", "") == "int8":
+                output_net = quantized_apply(model, img, gt_seg_input)
+            else:
+                output_net = model(img, gt_seg_input)
             output_seg = output_net[..., :seg_dim]
             if opt.estimate_confidence:
                 output_dirs = output_net[..., seg_dim : seg_dim + 2 * k]
@@ -190,7 +193,7 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
     return step
 
 
-def _load_weights(opt, model):
+def load_weights_from_opt(opt, model):
     """Weights as the JAX harness finds them: ``--load_h5_weights`` (.npz, else .h5), else a checkpoint, else
     random."""
     if opt.load_h5_weights:
@@ -277,7 +280,7 @@ def run_evaluation(opt, device="cuda"):
 
     model = build_model_from_opt(opt, no_objects, device=dev,
                                  generator=torch.Generator().manual_seed(int(opt.manualseed)))
-    _load_weights(opt, model)
+    load_weights_from_opt(opt, model)
     step = build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count, loss_weights_from_opt(opt))
 
     with open(os.path.join(opt.evalf, "loss_test_eval.csv"), "w") as f:

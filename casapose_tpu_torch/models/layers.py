@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from casapose_tpu_torch.ops import quant
 from casapose_tpu_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 2e-5
@@ -58,13 +59,18 @@ _OFFSETS_3X3 = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 
 
 class Conv(nn.Conv2d):
-    """Bias-free convolution with the flax compute-dtype rule (``dtype=None``: promote input and kernel)."""
+    """Bias-free convolution with the flax compute-dtype rule (``dtype=None``: promote input and kernel).
+
+    Inside ``ops/quant.py::quantized_convs`` it runs int8-quantized instead.
+    """
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0, dilation=1, dtype=None):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding, dilation=dilation, bias=False)
         self.compute_dtype = dtype
 
     def forward(self, x):
+        if quant.int8_active():
+            return quant.quantize_conv_int8(self, x)
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return self._conv_forward(x.to(dt), self.weight.to(dt), None)
 
@@ -275,6 +281,7 @@ class PartialConv(nn.Module):
     the sum is rescaled by 9 over the exact number of such members (the JAX
     package's count, not the TF reference's phantom count, PARITY.md). The
     kernel is cast to the input's dtype, and the taps are summed in it.
+    Inside ``ops/quant.py::quantized_convs`` it runs int8-quantized instead.
     """
 
     def __init__(self, in_channels, features):
@@ -282,6 +289,8 @@ class PartialConv(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
 
     def forward(self, x, seg_onehot=None):
+        if quant.int8_active():
+            return quant.quantize_partial_conv_int8(self, x, seg_onehot)
         weight = self.weight.to(x.dtype)
         if seg_onehot is None:
             return F.conv2d(x, weight, padding=1)

@@ -52,6 +52,18 @@ def connected_components_labels(fg, max_sweeps=64):
     return labels
 
 
+@torch.library.custom_op("casapose::connected_components", mutates_args=())
+def _labels_op(fg: torch.Tensor, max_sweeps: int) -> torch.Tensor:
+    """:func:`connected_components_labels` as one operator: its loop stops on a host read of the labels, which
+    ``torch.export`` cannot trace, so an exported program calls the same loop (core/export.py)."""
+    return connected_components_labels(fg, max_sweeps)
+
+
+@_labels_op.register_fake
+def _(fg, max_sweeps):
+    return torch.empty_like(fg, dtype=torch.int64)
+
+
 def largest_component_mask(fg, min_size=50, second_largest=False, weights=None, weight_bits=5):
     """Keep only the largest (or second-largest) component of each mask.
 
@@ -62,7 +74,7 @@ def largest_component_mask(fg, min_size=50, second_largest=False, weights=None, 
     Returns a float32 [M, h, w] mask, possibly all zero.
     """
     m, h, w = fg.shape
-    labels = connected_components_labels(fg).view(m, h * w)
+    labels = _labels_op(fg, 64).view(m, h * w)
     if weights is None:
         wflat = torch.ones_like(labels)
     else:

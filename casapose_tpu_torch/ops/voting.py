@@ -19,7 +19,19 @@ Two branches compute the sums S[b, o, k, 6] = sum w*[a, b, d, qy, qx, 1]:
   * otherwise the einsum form of the JAX package's default ``multi`` path,
     the differentiable one that the train step's keypoint loss takes.
 Both normalise by the weight mass and solve the 2x2 system in closed form.
+
+``CASAPOSE_VOTING_FORM`` selects the JAX package's layout of the XLA sums
+(``casapose_tpu/ops/voting.py:220``). ``multi`` (the default), ``stack`` and
+``concat`` are three XLA layouts of the same float32 sums; here all three are
+the einsum form, and the voting kernel where ``raw_output`` is given on CUDA.
+``bf16c`` changes the result: it centres each class on its pixel centroid,
+rounds the centred features and the class mask to bfloat16 and sums them with
+float32 accumulation (:func:`bf16c_points`). It is taken wherever the JAX
+package's default (``CASAPOSE_VOTING=xla``) takes it, so also in place of the
+voting kernel. Any other value raises.
 """
+
+import os
 
 import torch
 
@@ -27,6 +39,18 @@ from casapose_tpu_torch.core.numerics import divide_no_nan, f32_pinned
 from casapose_tpu_torch.ops.connected_components import largest_component_mask
 from casapose_tpu_torch.ops.plain import is_plain
 from casapose_tpu_torch.ops.voting_kernel import voting_accumulate, voting_accumulate_plain
+
+
+@torch.library.custom_op("casapose::voting_accumulate", mutates_args=())
+def _voting_op(output_net: torch.Tensor, labels: torch.Tensor, seg_dim: int, num_points: int) -> torch.Tensor:
+    """The voting kernel's call site as one operator, so that ``torch.export`` records it (core/export.py): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors, through this module's ``voting_accumulate``."""
+    return voting_accumulate(output_net, labels, seg_dim, num_points)
+
+
+@_voting_op.register_fake
+def _(output_net, labels, seg_dim, num_points):
+    return output_net.new_empty((output_net.shape[0], seg_dim - 1, num_points, 6))
 
 
 def instance_filter_mask(hot_bool, min_component_size=50, second_largest=False, downsample=4):
@@ -94,28 +118,75 @@ def _solve_sums(S, h):
     return torch.stack([py, px], dim=-1).to(torch.promote_types(S.dtype, torch.float32)) * float(h)
 
 
-@f32_pinned  # the JAX contractions are HIGHEST whatever --matmul_precision says, in the gradient too
-def einsum_sums(hot, directions, weights, sigmoid_weights):
-    """The einsum form: six [oc, P] x [P, k] contractions sharing the class mask."""
-    b, h, w, oc = hot.shape
+VOTING_FORMS = ("multi", "stack", "concat", "bf16c")
+
+
+def voting_form():
+    """``CASAPOSE_VOTING_FORM`` (default ``multi``), checked against :data:`VOTING_FORMS`."""
+    form = os.environ.get("CASAPOSE_VOTING_FORM", "multi")
+    if form not in VOTING_FORMS:
+        raise ValueError(f"CASAPOSE_VOTING_FORM={form!r}: expected one of {VOTING_FORMS}")
+    return form
+
+
+def _features(directions, weights, sigmoid_weights, h, w):
+    """Per-pixel weights w and normal-matrix entries a, b, d [b, h, w, k], and the pixel centres cy [1, h, 1, 1],
+    cx [1, 1, w, 1] over the image height."""
+    b = directions.shape[0]
     k = weights.shape[-1]
-    dtype = directions.dtype
+    dtype, dev = directions.dtype, directions.device
     wgt = torch.sigmoid(weights) if sigmoid_weights else torch.logaddexp(weights, torch.zeros_like(weights))
     n = directions.reshape(b, h, w, k, 2)
     # sqrt(sum(n^2)) as jnp.linalg.norm computes it: the same value, and the same non-finite gradient where a
     # predicted direction is exactly zero (ROADMAP section 3).
     n = divide_no_nan(n, torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True)))
     ny, nx = n[..., 0], n[..., 1]
-    a = 1.0 - ny * ny
-    bb = -ny * nx
-    d = 1.0 - nx * nx
-    cy = ((torch.arange(h, dtype=dtype, device=hot.device) + 0.5) / h).view(1, h, 1, 1)
-    cx = ((torch.arange(w, dtype=dtype, device=hot.device) + 0.5) / h).view(1, 1, w, 1)
+    cy = ((torch.arange(h, dtype=dtype, device=dev) + 0.5) / h).view(1, h, 1, 1)
+    cx = ((torch.arange(w, dtype=dtype, device=dev) + 0.5) / h).view(1, 1, w, 1)
+    return wgt, 1.0 - ny * ny, -ny * nx, 1.0 - nx * nx, cy, cx
+
+
+@f32_pinned  # the JAX contractions are HIGHEST whatever --matmul_precision says, in the gradient too
+def einsum_sums(hot, directions, weights, sigmoid_weights):
+    """The einsum form: six [oc, P] x [P, k] contractions sharing the class mask."""
+    b, h, w, oc = hot.shape
+    wgt, a, bb, d, cy, cx = _features(directions, weights, sigmoid_weights, h, w)
     qy = a * cy + bb * cx
     qx = bb * cy + d * cx
     parts = [torch.einsum("bhwo,bhwk->bok", hot, f * wgt) for f in (a, bb, d, qy, qx)]
     parts.append(torch.einsum("bhwo,bhwk->bok", hot, wgt))
     return torch.stack(parts, dim=-1)
+
+
+@f32_pinned  # the bfloat16 products are exact in float32; TF32 must not round their sums
+def bf16c_points(hot, directions, weights, sigmoid_weights):
+    """The ``bf16c`` form (``casapose_tpu/ops/voting.py:221-264``): voted points [b, oc, k, 2] (y, x).
+
+    Each class is centred on its pixel centroid c0 (float32), which shifts
+    the normal equations exactly (p = p' + c0) and leaves the q features at
+    the blob's radius instead of the image's. The six centred features times
+    the weight, and the class mask, are rounded to bfloat16 and summed with
+    float32 accumulation: one float32 [oc, P] x [P, 6k] product of the
+    rounded operands, whose products are exact in float32 (a bfloat16
+    product would round the sums; ``torch.bmm(..., out_dtype=float32)`` on
+    bfloat16 operands summed 10x less accurately on an H100, 3e-4 of the
+    largest sum against 3e-5, and has no derivative). The 2x2 solve is
+    float32.
+    """
+    b, h, w, oc = hot.shape
+    k = weights.shape[-1]
+    wgt, a, bb, d, cy, cx = _features(directions, weights, sigmoid_weights, h, w)
+    inv_m0 = divide_no_nan(torch.ones((), dtype=hot.dtype, device=hot.device), hot.sum(dim=(1, 2)))  # [b, oc]
+    c0y = torch.sum(hot * cy, dim=(1, 2)) * inv_m0
+    c0x = torch.sum(hot * cx, dim=(1, 2)) * inv_m0
+    cyp = cy - torch.einsum("bhwo,bo->bhw", hot, c0y)[..., None]  # centred on the pixel's class centroid
+    cxp = cx - torch.einsum("bhwo,bo->bhw", hot, c0x)[..., None]
+    feats = torch.cat([f * wgt for f in (a, bb, d, a * cyp + bb * cxp, bb * cyp + d * cxp)] + [wgt], dim=-1)
+    hot16 = hot.to(torch.bfloat16).to(torch.float32).reshape(b, h * w, oc)
+    feats16 = feats.to(torch.bfloat16).to(torch.float32).reshape(b, h * w, 6 * k)
+    S = torch.einsum("bpo,bpf->bof", hot16, feats16)
+    points = _solve_sums(S.reshape(b, oc, 6, k).transpose(2, 3), 1.0)
+    return (points + torch.stack([c0y, c0x], dim=-1)[:, :, None]) * float(h)
 
 
 def ls_voting(
@@ -151,10 +222,12 @@ def ls_voting(
     labels, hot = class_masks(
         seg, directions.dtype, filter_estimates, min_component_size, output_second_largest_component, cc_downsample
     )
+    if voting_form() == "bf16c":
+        return bf16c_points(hot, directions, weights, sigmoid_weights)
     plain = is_plain("voting")
     if raw_output is not None and not sigmoid_weights and (raw_output.is_cuda or plain):
         labels_f = filtered_labels(labels, hot)
-        accumulate = voting_accumulate_plain if plain else voting_accumulate
+        accumulate = voting_accumulate_plain if plain else _voting_op
         S = accumulate(raw_output.detach().to(torch.float32).contiguous(), labels_f, c, k)
     else:
         S = einsum_sums(hot, directions, weights, sigmoid_weights)

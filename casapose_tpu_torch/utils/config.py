@@ -120,9 +120,11 @@ def build_parser():
         type=str,
         default="",
         choices=["", "int8"],
-        help="run evaluation with quantized convolutions (ops/quant.py): 'int8' executes every "
-        "conv as s8xs8->s32 on the MXU's double-rate int8 path with half the activation bytes. "
-        "TPU-first addition (the reference is f32 end to end); accuracy bands in tests/test_quant.py.",
+        help="run evaluation with quantized convolutions (ops/quant.py): 'int8' computes every "
+        "convolution on int8 codes (per-image activation scales, per-channel weight scales) as an "
+        "s8xs8->s32 product, torch._int_mm on an im2col of the codes (cuBLASLt's int8 path on the "
+        "card), then one float32 rescale. The reference is float32 end to end; accuracy bands in "
+        "tests/test_quant.py.",
     )
     parser.add_argument(
         "--cache_records",
@@ -137,16 +139,17 @@ def build_parser():
     parser.add_argument(
         "--export_path",
         default=None,
-        help="(util_scripts/export_model.py) output path for the serialized jax.export StableHLO "
-        "artifact of the inference pipeline (network -> LS voting -> PnP, weights folded as "
-        "constants). Serving hosts load it with jax.export.deserialize — no framework needed.",
+        help="(python -m casapose_tpu_torch.export_model) output path for the torch.export program "
+        "of the inference pipeline (network -> LS voting -> PnP, weights inside the artifact). A "
+        "serving host loads it with core/export.py::load_exported, which needs torch and "
+        "casapose_tpu_torch.ops (its custom operators).",
     )
     parser.add_argument(
         "--export_platforms",
         default="tpu",
-        help="(util_scripts/export_model.py) comma-separated lowering platforms for the exported "
-        "artifact (e.g. 'tpu', 'tpu,cpu'); cross-platform export does not require the target "
-        "hardware at export time.",
+        help="(python -m casapose_tpu_torch.export_model) comma-separated devices to export for, one "
+        "program each: 'cpu' is the CPU, an accelerator name ('tpu', 'gpu', 'cuda') the card. Each "
+        "program is traced on its device, so exporting for the card needs it.",
     )
     parser.add_argument(
         "--matmul_precision",

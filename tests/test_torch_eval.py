@@ -602,7 +602,7 @@ def test_chunked_step_equals_unchunked(step_setup, n, chunk):
 
 
 def test_unported_options_raise(step_setup):
-    """int8 inference stays refused. The visual dumps and the trace, refused before, build the step; with
+    """The visual dumps and the trace, refused before, build the step; with
     ``--save_eval_batches`` it returns the JAX step's ``proxy_dist`` extra. Tolerance rtol 1e-4, atol 1e-2 px: each
     distance is a difference of products of pixel coordinates (up to ~80) with direction channels that agree to
     1e-4, which cancels near the keypoint (measured: 16 of 92,160 distances of ~1 px apart by up to 3.6e-3)."""
@@ -617,9 +617,6 @@ def test_unported_options_raise(step_setup):
     from casapose_tpu_torch.utils.config import parse_config
 
     jm, flat, model, verts, counts = step_setup
-    with pytest.raises(NotImplementedError, match="int8"):
-        build_test_step(model, parse_config(_step_flags() + ["--quantized_inference", "int8"]), OC, verts, counts,
-                        LossWeights())
     build_test_step(model, parse_config(_step_flags() + ["--profile_dir", "prof"]), OC, verts, counts, LossWeights())
     flags = _step_flags() + ["--save_eval_batches", "1"]
     batch = _batch(model, B)
@@ -652,3 +649,63 @@ def test_least_squares_without_confidence_is_refused_as_by_jax(step_setup):
     batch = {k: jnp.asarray(v) for k, v in _batch(model, B).items()}
     with pytest.raises(TypeError, match="logaddexp"):
         step(unflatten_params(flat), batch)
+
+
+def test_int8_step_matches_jax(step_setup, monkeypatch):
+    """``--quantized_inference int8``: the port's step against the JAX package's int8 step on the same batch.
+
+    The int8 network itself is held against the JAX package's layer by layer in tests/test_torch_quant.py; end to
+    end the two int8 forwards part at rounding ties (see there), so the port's forward is held here within the
+    distance at which int8 lies from float32 (median 2e-2 of each head's max, tests/test_quant.py's band; measured
+    ~7e-3), and the rest of the step runs on the JAX step's own int8 network output: the port's ``quantized_apply``
+    is called as the JAX step calls its own (the image, the GT mask for decoder 2, eval mode) and its result is
+    swapped for JAX's. Losses, counts, poses and points are then held as test_step_matches_jax holds them."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import casapose_tpu_torch.eval as port_eval
+    from casapose_tpu.core.checkpoint import unflatten_params
+    from casapose_tpu.eval import build_test_step as jax_build
+    from casapose_tpu.losses.losses import LossWeights as JaxWeights
+    from casapose_tpu.utils.config import parse_config as jax_parse
+    from casapose_tpu_torch.utils.config import parse_config
+
+    jm, flat, model, verts, counts = step_setup
+    flags = _step_flags() + ["--quantized_inference", "int8"]
+    batch = _batch(model, B)
+    opt = jax_parse(flags)
+    lw = JaxWeights(mask_loss_weight=opt.mask_loss_weight, vertex_loss_weight=opt.vertex_loss_weight,
+                    proxy_loss_weight=opt.proxy_loss_weight, kp_loss_weight=opt.keypoint_loss_weight)
+    with jax_pnp_accelerator_branch() as pnp_calls:
+        want = jax.tree_util.tree_map(np.asarray, jax_build(jm, opt, OC, verts, counts, lw)(
+            unflatten_params(flat), {k: jnp.asarray(v) for k, v in batch.items()}))
+    assert pnp_calls, "the JAX solve_pnp did not take its Pallas branch"
+    jax_net = np.concatenate([want["output_seg"], want["output_dirs"], want["confidence"]], axis=-1)
+
+    real = port_eval.quantized_apply
+    seen = []
+
+    def jax_network_output(m, img, gt_seg):
+        out = real(m, img, gt_seg)
+        seen.append((m, gt_seg is not None, out))
+        return torch.from_numpy(jax_net)
+
+    monkeypatch.setattr(port_eval, "quantized_apply", jax_network_output)
+    opt_port = parse_config(flags)
+    got = _run_port(port_eval.build_test_step(model, opt_port, OC, verts, counts,
+                                              port_eval.loss_weights_from_opt(opt_port)), batch)
+    (m, with_gt, out), = seen
+    assert m is model and with_gt
+    out = out.numpy()
+    for sl in (slice(0, SEG_DIM), slice(SEG_DIM, None)):
+        assert np.median(np.abs(out[..., sl] - jax_net[..., sl])) < 2e-2 * np.abs(jax_net[..., sl]).max()
+    assert not model.training
+
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+    for i in (0, 1, 2, 3, 6, 7):
+        np.testing.assert_array_equal(got["pose_stats"][i], want["pose_stats"][i])
+    for i in (4, 5):
+        np.testing.assert_allclose(got["pose_stats"][i], want["pose_stats"][i], rtol=1e-4)
+    np.testing.assert_allclose(got["estimated_poses"], want["estimated_poses"], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got["estimated_points"], want["estimated_points"], rtol=1e-4, atol=5e-3)
