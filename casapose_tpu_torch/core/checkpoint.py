@@ -15,7 +15,7 @@ Counterpart of ``casapose_tpu/core/checkpoint.py``:
     ``to_jax_variables(model.state_dict())`` exactly as the JAX functions map
     them, so the weight bridge is the only name map. ``h5py`` is imported
     when a function needs it; without it they raise an ImportError that
-    names the ``.npz`` route (``util_scripts/convert_h5_weights.py``).
+    names the ``.npz`` route (``python -m casapose_tpu_torch.convert_h5_weights``).
   * ``find_imagenet_h5`` / ``load_imagenet_backbone``: the qubvel ImageNet
     backbone ``.h5``, from ``$CASAPOSE_IMAGENET_H5`` or the Keras cache
     (``~/.keras/models``). The JAX package's download is not copied: where
@@ -123,8 +123,8 @@ def restore_checkpoint(path, model, optimizer=None, step=None):
 
 # ------------------------------------------------------------ .h5 import and export
 
-_H5_ROUTE = ("util_scripts/convert_h5_weights.py turns an .h5 into the .npz that load_weights_npz reads, on a host "
-             "with h5py and the JAX package")
+_H5_ROUTE = ("python -m casapose_tpu_torch.convert_h5_weights (or the JAX package's util_scripts/convert_h5_weights.py) "
+             "turns an .h5 into the .npz that load_weights_npz reads, on a host with h5py")
 
 
 def h5py_available():

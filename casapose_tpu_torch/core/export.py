@@ -11,8 +11,8 @@ callable ``(img, keypoints3d, camera) -> poses``.
 What a serving host needs differs from the JAX package's artifact, which
 needs only ``jax``: this program calls three custom operators,
 ``casapose::voting_accumulate``, ``casapose::connected_components`` and
-``casapose::solve_pnp`` (the voting kernel, the CC labelling loop, which stops
-on a host read and so cannot be traced, and the PnP kernel). Loading it needs
+``casapose::solve_pnp`` (the voting kernel, the CC labelling kernel and the
+PnP kernel: ctypes launches, which cannot be traced). Loading it needs
 ``torch`` and ``import casapose_tpu_torch.ops``, which registers them; on the
 card their kernels build from ``casapose_tpu_torch/csrc`` at first use, as in
 the live step, and their launch counters count inside the program.

@@ -158,8 +158,9 @@ class BatchIterator:
     """Iterator over ``epochs`` epochs of a dataset with a bounded prefetch queue, fed by a producer thread."""
 
     def __init__(self, dataset, indices, epochs, batchsize, imagesize, cropratio, max_count, workers, prefetch, shuffle,
-                 seed, record_cache=None, drop_remainder=True, rows=None):
+                 seed, record_cache=None, drop_remainder=True, rows=None, pin_memory=False):
         self.dataset = dataset
+        self.pin_memory = pin_memory
         self.rows = rows
         self.record_cache = record_cache
         self.epochs = epochs
@@ -208,6 +209,8 @@ class BatchIterator:
                 batch[key] = np.asarray([[s[key]] for s in samples])
             else:
                 batch[key] = np.stack([s[key] for s in samples])
+                if self.pin_memory:  # page-locked: a non_blocking copy to the card then waits on no earlier step
+                    batch[key] = torch.from_numpy(batch[key]).pin_memory().numpy()
         while not self._stop:
             try:
                 self.queue.put(batch, timeout=1.0)
@@ -242,14 +245,18 @@ class BatchIterator:
 
 
 def make_dataset(dataset, batchsize, epochs, prefetch, imagesize, cropratio, worker, no_objects, shuffle=True,
-                 mirrored_strategy=None, seed=None, record_cache_dir=None, drop_remainder=True, rows=None):
+                 mirrored_strategy=None, seed=None, record_cache_dir=None, drop_remainder=True, rows=None,
+                 pin_memory=False):
     """The JAX package's ``generate_dataset`` signature: returns (iterator, batches per epoch).
 
     The iterator yields ``epochs`` epochs; the JAX package's loops forever.
     ``drop_remainder=False`` keeps every image: the epoch ends with one short batch.
     ``rows`` (a slice of the global batch of ``batchsize``) makes the iterator
     yield only those rows of each batch, decoding only them: a data-parallel
-    rank's share (``parallel/mesh.py``).
+    rank's share (``parallel/mesh.py``). ``pin_memory`` makes the producer
+    put each array of a batch (but ``image_id``) in page-locked memory, still
+    as numpy arrays, so that ``torch.from_numpy(a).to(card, non_blocking=True)``
+    is an asynchronous copy.
     """
     del no_objects, mirrored_strategy
     record_cache_dir = record_cache_dir or getattr(dataset, "record_cache_dir", None)
@@ -260,7 +267,7 @@ def make_dataset(dataset, batchsize, epochs, prefetch, imagesize, cropratio, wor
         dataset, list(range(data_size)), epochs, batchsize, imagesize, cropratio, max_count=1, workers=worker or 8,
         prefetch=prefetch or 4, shuffle=shuffle, seed=seed,
         record_cache=RecordCache(record_cache_dir) if record_cache_dir else None, drop_remainder=drop_remainder,
-        rows=rows,
+        rows=rows, pin_memory=pin_memory,
     )
     return it, epoch_batches
 

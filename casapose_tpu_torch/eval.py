@@ -24,6 +24,12 @@ a Keras ``.h5`` (where h5py imports) or a checkpoint of ``python -m
 casapose_tpu_torch.train``. ``--quantized_inference int8`` runs the
 network's convolutions int8-quantized (``ops/quant.py``). Refused: orbax
 checkpoints (the JAX package's ``save_weights_npz`` exports them).
+
+The loop is software-pipelined, as the JAX harness's: batch N's step is
+dispatched before batch N-1's host work (sums, CSVs, pose files, dumps), with
+the loader's batches in page-locked memory and every copy between host and
+card asynchronous; ``CASAPOSE_EVAL_PIPELINE=0`` runs the serial loop, which
+writes the same files apart from their time columns.
 """
 
 import argparse
@@ -51,6 +57,7 @@ from casapose_tpu_torch.ops.quant import quantized_apply
 from casapose_tpu_torch.ops.vectorfield import get_all_vectorfields
 from casapose_tpu_torch.ops.voting import ls_voting
 from casapose_tpu_torch.pose.evaluation import estimate_and_evaluate_poses, evaluate_pose_estimates
+from casapose_tpu_torch.pose.metrics import symmetric_objects
 from casapose_tpu_torch.utils.profiler import ProfileWindow
 
 
@@ -90,6 +97,7 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
     k = opt.no_points
     separated = opt.modelname == "pvnet"  # one direction-field stack per object, as the JAX step
     dev = next(model.parameters()).device
+    sym_objects = symmetric_objects(mesh_vertex_count)  # on the host, once: the step reads nothing back for ADD-S
     mesh_vertex_array = torch.as_tensor(np.asarray(mesh_vertex_array), dtype=torch.float32, device=dev)
     mesh_vertex_count = torch.as_tensor(np.asarray(mesh_vertex_count), device=dev)
 
@@ -136,7 +144,7 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
                 pose_stats, estimated_poses, estimated_points = evaluate_pose_estimates(
                     points_est, poses_est, batch["poses_gt"], target_seg, batch["keypoints3d"], batch["camera"],
                     batch["diameters"], evaluation_points=mesh_vertex_array, object_points_3d_count=mesh_vertex_count,
-                    min_num=1,
+                    min_num=1, symmetric_objects=sym_objects,
                 )
                 estimated_poses = estimated_poses[:, :, 0]
             else:
@@ -144,7 +152,7 @@ def build_test_step(model, opt, no_objects, mesh_vertex_array, mesh_vertex_count
                     output_seg, target_seg, output_dirs, batch["poses_gt"], batch["keypoints3d"], batch["camera"],
                     batch["diameters"], batch["offsets"], evaluation_points=mesh_vertex_array,
                     object_points_3d_count=mesh_vertex_count, min_num=1,
-                    ransac_rounds=int(getattr(opt, "ransac_rounds", 20)),
+                    ransac_rounds=int(getattr(opt, "ransac_rounds", 20)), symmetric_objects=sym_objects,
                 )
             losses = composite_loss(output_seg, target_seg, output_dirs, target_dirs, target_vertex, loss_weights,
                                     kp_loss=kp_loss)
@@ -274,7 +282,7 @@ def run_evaluation(opt, device="cuda"):
     B = max(int(getattr(opt, "batchsize_test", 1)), 1)
     testingdata, test_batches = test_dataset.generate_dataset(
         B, 1, opt.prefetch, opt.imagesize_test, 1.0, opt.workers, no_objects, shuffle=False, seed=opt.manualseed,
-        drop_remainder=False,
+        drop_remainder=False, pin_memory=dev.type == "cuda",
     )
     mesh_vertex_array, mesh_vertex_count = test_dataset.generate_object_vertex_array()
 
@@ -296,61 +304,112 @@ def run_evaluation(opt, device="cuda"):
     total_images = 0
     sums = {key: np.zeros(no_objects) for key in ("v2d", "v3d", "gt", "fp", "e2d", "e3d", "missed")}
     times = []
-    phase = {"fetch": 0.0, "h2d": 0.0, "step": 0.0, "host_io": 0.0}
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    wall0 = mark = time.time()
-    first_done, first_images = None, 0
+    # Host seconds by phase: loader waits (fetch), enqueueing the host-to-device copies (h2d) and the step's
+    # kernels (dispatch), the wait for the step's results (step: in the pipelined loop only what the host work of
+    # the batch before did not hide), and the host work (CSVs, pose files, visual dumps).
+    phase = {"fetch": 0.0, "h2d": 0.0, "dispatch": 0.0, "step": 0.0, "host_io": 0.0}
+    # The software-pipelined loop of the JAX harness: dispatch batch N's step, then do batch N-1's host work while
+    # the card computes. Batches are summed in the same order, so every file but its time columns equals the serial
+    # loop's (CASAPOSE_EVAL_PIPELINE=0). The step reads nothing back to the host; its results come back by
+    # asynchronous copies into page-locked memory, with an event after them that the host waits on.
+    pipelined = os.environ.get("CASAPOSE_EVAL_PIPELINE", "1") != "0"
+    on_card = dev.type == "cuda"
+    host_keys = ("losses", "pose_stats") + (("estimated_poses",) if opt.write_poses else ())
+    # Start-up against steady state: t_first is when batch 0's device work completed, read on the card's clock from
+    # an event recorded at the loop's start (on the CPU the step is done when it returns). The JAX harness stamps it
+    # after batch 0's host work, which gives its steady window a head start.
+    t_first = [None, 0]
+    origin = None
+    if on_card:
+        torch.cuda.synchronize(dev)
+        origin = torch.cuda.Event(enable_timing=True)
+        origin.record()
+    wall0 = time.time()
+    mark = [wall0]
     print(f"Test Batches: {test_batches}")
     # --profile_dir: batches 1-5, as the JAX harness traces (batch 0 is its compile batch)
     profiler = ProfileWindow(getattr(opt, "profile_dir", None), 1, 6, dev, "eval_trace")
-    try:
-        for batch_idx in range(int(test_batches)):
-            profiler.before(batch_idx)
-            t0 = time.time()
-            batch = testingdata.get_next()
-            t1 = time.time()
-            dev_batch = {key: torch.as_tensor(v, device=dev) for key, v in batch.items() if key != "image_id"}
-            t2 = time.time()
-            out = step(dev_batch)
-            sync()
-            now = time.time()
-            phase["fetch"] += t1 - t0
-            phase["h2d"] += t2 - t1
-            phase["step"] += now - t2
-            dt = now - mark  # block-to-block wall per batch, as the JAX harness's time column
-            mark = now
-            times.append(dt)
 
-            b_actual = batch["img"].shape[0]
-            losses = out["losses"].cpu().numpy()
-            ps = [x.cpu().numpy() for x in out["pose_stats"]]
-            test_loss += losses * b_actual
-            total_images += b_actual
-            for key, i in (("v2d", 0), ("v3d", 1), ("gt", 2), ("fp", 7), ("e2d", 4), ("e3d", 5), ("missed", 6)):
-                sums[key] += ps[i]
-            with open(os.path.join(opt.evalf, "loss_test_eval.csv"), "a") as f:
-                # 7 values under the 10-column header: the reference's format (its 7th value is the time)
-                f.write("{},{:.15f},{:.7f},{:.7f},{:.7f},{:.7f},{:.7f}\n".format(batch_idx + 1, *losses, dt))
-            if (batch_idx + 1) % max(opt.loginterval, 1) == 0:
-                print(f"Batch idx: {batch_idx}, Loss: {losses[0]:.5f} --- mask: {losses[1]:.5f}, vector: {losses[2]:.5f}, "
-                      f"proxy: {losses[3]:.5f}, kp: {losses[4]:.5f} -- Average Loss: {test_loss[0] / max(total_images, 1):.5f}")
-                print(f"Test Sum GT: {sums['gt']}")
-                print(f"Test Sum 2D: {sums['v2d']}")
-                print(f"Test Sum 3D: {sums['v3d']}")
-            if opt.write_poses:
-                est = out["estimated_poses"].cpu().numpy()
-                for bi in range(b_actual):
-                    write_poses(batch["poses_gt"][bi], est[bi], objectsofinterest, batch["image_id"][bi],
-                                os.path.join(opt.evalf, "poses_out") + "/", time_needed=dt / b_actual)
-            if opt.save_eval_batches:
-                _save_eval_visuals(opt, batch, out, ps, no_objects, batch_idx)
-            phase["host_io"] += time.time() - now
-            if first_done is None:
-                first_done, first_images = time.time(), b_actual
+    def _to_host(v):
+        return [x.to("cpu", non_blocking=True) for x in v] if isinstance(v, list) else v.to("cpu", non_blocking=True)
+
+    def _dispatch(batch_idx):
+        profiler.before(batch_idx)
+        tf0 = time.time()
+        batch = testingdata.get_next()
+        th0 = time.time()
+        phase["fetch"] += th0 - tf0
+        dev_batch = {key: torch.from_numpy(np.asarray(v)).to(dev, non_blocking=True) for key, v in batch.items()
+                     if key != "image_id"}
+        td0 = time.time()
+        phase["h2d"] += td0 - th0
+        out = step(dev_batch)
+        keys = [key for key in out if opt.save_eval_batches or key in host_keys]
+        host = {key: _to_host(out[key]) for key in keys}
+        done = None
+        if on_card:
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+        returned = time.time()
+        phase["dispatch"] += returned - td0
+        return batch_idx, batch, host, done, returned
+
+    def _consume(batch_idx, batch, out, done, returned):
+        nonlocal test_loss, total_images
+        t0 = time.time()
+        if done is not None:
+            done.synchronize()
+        now = time.time()
+        phase["step"] += now - t0
+        if t_first[0] is None:
+            finished = returned if done is None else wall0 + origin.elapsed_time(done) / 1e3
+            t_first[:] = [finished, batch["img"].shape[0]]
+        dt = now - mark[0]  # block-to-block wall per batch, as the JAX harness's time column
+        mark[0] = now
+        times.append(dt)
+
+        b_actual = batch["img"].shape[0]
+        losses = out["losses"].numpy()
+        ps = [x.numpy() for x in out["pose_stats"]]
+        test_loss += losses * b_actual
+        total_images += b_actual
+        for key, i in (("v2d", 0), ("v3d", 1), ("gt", 2), ("fp", 7), ("e2d", 4), ("e3d", 5), ("missed", 6)):
+            sums[key] += ps[i]
+        with open(os.path.join(opt.evalf, "loss_test_eval.csv"), "a") as f:
+            # 7 values under the 10-column header: the reference's format (its 7th value is the time)
+            f.write("{},{:.15f},{:.7f},{:.7f},{:.7f},{:.7f},{:.7f}\n".format(batch_idx + 1, *losses, dt))
+        if (batch_idx + 1) % max(opt.loginterval, 1) == 0:
+            print(f"Batch idx: {batch_idx}, Loss: {losses[0]:.5f} --- mask: {losses[1]:.5f}, vector: {losses[2]:.5f}, "
+                  f"proxy: {losses[3]:.5f}, kp: {losses[4]:.5f} -- Average Loss: {test_loss[0] / max(total_images, 1):.5f}")
+            print(f"Test Sum GT: {sums['gt']}")
+            print(f"Test Sum 2D: {sums['v2d']}")
+            print(f"Test Sum 3D: {sums['v3d']}")
+        if opt.write_poses:
+            est = out["estimated_poses"].numpy()
+            for bi in range(b_actual):
+                write_poses(batch["poses_gt"][bi], est[bi], objectsofinterest, batch["image_id"][bi],
+                            os.path.join(opt.evalf, "poses_out") + "/", time_needed=dt / b_actual)
+        if opt.save_eval_batches:
+            _save_eval_visuals(opt, batch, out, ps, no_objects, batch_idx)
+        phase["host_io"] += time.time() - now
+
+    try:
+        pending = None
+        for batch_idx in range(int(test_batches)):
+            entry = _dispatch(batch_idx)
+            if not pipelined:
+                _consume(*entry)
+                continue
+            if pending is not None:
+                _consume(*pending)
+            pending = entry
+        if pending is not None:
+            _consume(*pending)
         loop_end = time.time()
         profiler.close()  # fewer than 7 batches: stop at the loop's end
     finally:
         testingdata.close()
+    first_done, first_images = t_first
 
     test_loss /= max(total_images, 1)
     with np.errstate(divide="ignore", invalid="ignore"):

@@ -254,8 +254,7 @@ def composite_loss(output_seg, target_seg, output_vert, target_vert, target_poin
     zero = torch.zeros((), dtype=dtype, device=output_seg.device)
     mask_loss = vertex_loss = proxy_loss = zero
     separated = oc > 1 and output_vert.shape[-1] == oc * vc
-    bg = torch.zeros(oc + 1, dtype=dtype, device=output_seg.device)
-    bg[0] = 1.0
+    bg = (torch.arange(oc + 1, device=output_seg.device) == 0).to(dtype)  # (1, 0, ..., 0), made on the device
 
     if loss_weights.mask_loss_weight > 0.0:
         shifted = output_seg - torch.amax(output_seg, dim=-1, keepdim=True).detach()

@@ -145,7 +145,7 @@ def leaky_relu(x, slope=0.1):
     """flax's ``where(x >= 0, x, slope * x)``; in bfloat16 the slope is rounded to bfloat16 first, as XLA does."""
     if x.dtype == torch.float32:
         return F.leaky_relu(x, slope)
-    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype, device=x.device))
+    return torch.where(x >= 0, x, x * torch.full((), slope, dtype=x.dtype, device=x.device))
 
 
 def hard_onehot(logits, dim=1):
@@ -180,8 +180,9 @@ def resize_bilinear_2x(x):
 
 
 def resize_nearest_2x(x):
-    """2x nearest upsampling (``jnp.repeat`` on both axes)."""
-    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    """2x nearest upsampling (``jnp.repeat`` on both axes), as a broadcast: no host read of a repeat count."""
+    *lead, h, w = x.shape
+    return x[..., :, None, :, None].expand(*lead, h, 2, w, 2).reshape(*lead, 2 * h, 2 * w)
 
 
 def half_size(x):

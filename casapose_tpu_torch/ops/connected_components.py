@@ -4,64 +4,47 @@ Counterpart of ``casapose_tpu/ops/connected_components.py``. Every
 foreground pixel starts with its linear index + 1; sweeps of segmented
 max-scans along rows and columns (both directions) flood whole runs at once
 and repeat until nothing changes, at most ``max_sweeps`` times. Components
-are 4-connected and carry their largest linear index + 1. Labels and masks
-are integers and equal the JAX package's exactly.
+are 4-connected and carry their largest linear index + 1. Labels (int32, as
+the JAX package's) and masks equal the JAX package's exactly.
 
-The segmented max-scan is a ``cummax`` over ``segment * BIG + value``:
-the segment id (a running count of background resets) is non-decreasing, so
-the maximum cannot leak from one segment into the next.
+The labelling is the CC kernel's call site (``ops/cc_kernel.py``): one
+launch of ``csrc/cc.cu`` for CUDA tensors, with no host read, as the JAX
+package's ``lax.while_loop``; the plain loop for CPU tensors and inside
+``ops/plain.py::plain_kernels("cc")``.
 """
 
 import torch
 
-
-def _segmented_max_scan(values, resets, dim, reverse=False):
-    """Max-scan of ``values`` along ``dim`` that restarts at each ``resets`` element."""
-    if reverse:
-        values, resets = values.flip(dim), resets.flip(dim)
-    seg = torch.cumsum(resets.to(torch.int64), dim=dim)
-    big = int(values.numel()) + 1
-    out = torch.cummax(seg * big + values, dim=dim).values - seg * big
-    return out.flip(dim) if reverse else out
-
-
-def _sweep(labels, fg):
-    """One row + column flood sweep, both directions."""
-    resets = ~fg
-    for dim in (2, 1):  # rows, then columns
-        fwd = _segmented_max_scan(labels, resets, dim)
-        bwd = _segmented_max_scan(labels, resets, dim, reverse=True)
-        labels = torch.where(fg, torch.maximum(fwd, bwd), torch.zeros_like(labels))
-    return labels
-
-
-def connected_components_labels(fg, max_sweeps=64):
-    """4-connected component labels of boolean masks ``fg`` [M, h, w] -> int64 [M, h, w].
-
-    0 on background; each component carries its largest linear index + 1.
-    """
-    m, h, w = fg.shape
-    idx = torch.arange(1, h * w + 1, dtype=torch.int64, device=fg.device).view(1, h, w)
-    labels = torch.where(fg, idx, torch.zeros_like(idx))
-    for _ in range(max_sweeps):
-        new = _sweep(labels, fg)
-        changed = bool(torch.any(new != labels))
-        labels = new
-        if not changed:
-            break
-    return labels
+from casapose_tpu_torch.ops.cc_kernel import (  # noqa: F401 (connected_components_plain, MAX_SWEEPS: re-exported)
+    MAX_SWEEPS,
+    connected_components_kernel,
+    connected_components_plain,
+)
+from casapose_tpu_torch.ops.plain import is_plain
 
 
 @torch.library.custom_op("casapose::connected_components", mutates_args=())
 def _labels_op(fg: torch.Tensor, max_sweeps: int) -> torch.Tensor:
-    """:func:`connected_components_labels` as one operator: its loop stops on a host read of the labels, which
-    ``torch.export`` cannot trace, so an exported program calls the same loop (core/export.py)."""
-    return connected_components_labels(fg, max_sweeps)
+    """The CC kernel's call site as one operator, so that ``torch.export`` records it (core/export.py): the CUDA
+    kernel for CUDA tensors, the plain loop for CPU tensors, through this module's
+    ``connected_components_kernel``."""
+    return connected_components_kernel(fg, max_sweeps)
 
 
 @_labels_op.register_fake
 def _(fg, max_sweeps):
-    return torch.empty_like(fg, dtype=torch.int64)
+    return torch.empty_like(fg, dtype=torch.int32)
+
+
+def connected_components_labels(fg, max_sweeps=MAX_SWEEPS):
+    """4-connected component labels of boolean masks ``fg`` [M, h, w] -> int32 [M, h, w].
+
+    0 on background; each component carries its largest linear index + 1.
+    Inside ``ops/plain.py::plain_kernels("cc")`` the plain loop on any device.
+    """
+    if is_plain("cc"):
+        return connected_components_plain(fg, max_sweeps)
+    return _labels_op(fg.contiguous(), max_sweeps)
 
 
 def largest_component_mask(fg, min_size=50, second_largest=False, weights=None, weight_bits=5):
@@ -74,7 +57,7 @@ def largest_component_mask(fg, min_size=50, second_largest=False, weights=None, 
     Returns a float32 [M, h, w] mask, possibly all zero.
     """
     m, h, w = fg.shape
-    labels = _labels_op(fg, 64).view(m, h * w)
+    labels = connected_components_labels(fg).view(m, h * w).to(torch.int64)
     if weights is None:
         wflat = torch.ones_like(labels)
     else:

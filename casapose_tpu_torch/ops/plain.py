@@ -1,21 +1,23 @@
 """Routing of the kernels' call sites to the kernels' plain versions.
 
-Two call sites launch a kernel for CUDA tensors: the voting sums in
-``ops/voting.py::ls_voting`` (kernel "voting") and the solve in
-``pose/epnp.py::solve_pnp`` (kernel "pnp"). Inside ``with
+Three call sites launch a kernel for CUDA tensors: the voting sums in
+``ops/voting.py::ls_voting`` (kernel "voting"), the solve in
+``pose/epnp.py::solve_pnp`` (kernel "pnp") and the CC labelling in
+``ops/connected_components.py::connected_components_labels`` (kernel "cc").
+Inside ``with
 plain_kernels(...)`` they call the named kernels' plain PyTorch versions
 instead, on any device, and take the same branch as on the card. That holds
 a kernel against its plain version on the inputs a whole path gives it; the
 package itself never enters this context.
 
-    with plain_kernels("pnp"):      # voting kernel, plain PnP
+    with plain_kernels("pnp"):      # voting and CC kernels, plain PnP
         out = step(batch)
 """
 
 import contextlib
 import contextvars
 
-KERNELS = ("voting", "pnp")
+KERNELS = ("voting", "pnp", "cc")
 # Per thread (and per asyncio task), as torch.no_grad is: one caller's context does not reach another's.
 _plain = contextvars.ContextVar("casapose_tpu_torch_plain_kernels", default=frozenset())
 

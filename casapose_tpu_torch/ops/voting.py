@@ -71,7 +71,8 @@ def instance_filter_mask(hot_bool, min_component_size=50, second_largest=False, 
         comp_small = largest_component_mask(
             small, min_size=min_component_size, second_largest=second_largest, weights=counts
         )
-        comp = comp_small.repeat_interleave(downsample, dim=1).repeat_interleave(downsample, dim=2)
+        d = downsample  # back to full size as a broadcast: no host read of a repeat count
+        comp = comp_small[:, :, None, :, None].expand(b * oc, hs, d, ws, d).reshape(b * oc, hs * d, ws * d)
         pad_h, pad_w = h - hs * downsample, w - ws * downsample
         if pad_h or pad_w:
             comp = torch.nn.functional.pad(comp, (0, pad_w, 0, pad_h))

@@ -37,7 +37,7 @@ from casapose_tpu_torch.pose.geometry import rodrigues, rotation_to_rvec
 
 def _project_placeholder(pts3d, K):
     """Pixels of ``pts3d`` [B, N, 3] under the placeholder pose R = I, t = (0, 0, 1)."""
-    cam = pts3d + torch.tensor([0.0, 0.0, 1.0], dtype=pts3d.dtype, device=pts3d.device)
+    cam = pts3d + (torch.arange(3, device=pts3d.device) == 2).to(pts3d.dtype)  # + (0, 0, 1), made on the device
     uv = divide_no_nan(cam[..., :2], cam[..., 2:])
     return uv * torch.stack([K[0, 0], K[1, 1]]) + torch.stack([K[0, 2], K[1, 2]])
 
@@ -345,7 +345,7 @@ def solve_pnp(pts2d, pts3d, K, iterations=10):
       p6d [B, 6] = [rvec | t].
     """
     dtype, dev = pts2d.dtype, pts2d.device
-    placeholder = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype, device=dev)
+    placeholder = (torch.arange(6, device=dev) == 5).to(dtype)  # (0, 0, 0, 0, 0, 1), made on the device
     safe_pts2d, degenerate = substitute_degenerate(pts2d, pts3d, K)
     if os.environ.get("CASAPOSE_PNP_REFINE", "pallas") != "pallas":
         p6d = _solve_xla(safe_pts2d, pts3d, K, iterations)

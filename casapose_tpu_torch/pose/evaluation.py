@@ -73,8 +73,12 @@ def estimate_poses(points, keypoints3d, camera_matrixes, valid_points_filter, of
 
 
 def evaluate_pose_estimates(points_estimated, poses, poses_gt, target_seg, object_points_3d, camera_data, diameters,
-                            evaluation_points=None, object_points_3d_count=None, min_num=20):
+                            evaluation_points=None, object_points_3d_count=None, min_num=20, symmetric_objects=None):
     """LS-voting evaluation: the poses were estimated inside the keypoint loss.
+
+    ``symmetric_objects``: the symmetric object indices of the eval meshes,
+    known on the host (``pose/metrics.py::symmetric_objects``), so that ADD-S
+    runs on their rows only; without eval meshes no object is symmetric.
 
     Returns ([valid_2d, valid_3d, valid_count, zeros, err_2d, err_3d,
     missing, false_positive], poses, points_estimated), each stat [oc].
@@ -86,10 +90,11 @@ def evaluate_pose_estimates(points_estimated, poses, poses_gt, target_seg, objec
         object_points_3d, object_points_3d_count = _tile_eval_points(evaluation_points, object_points_3d_count, b, ic)
     else:
         object_points_3d_count = torch.full((b, oc, ic), 9, dtype=torch.int32, device=poses_gt.device)
+        symmetric_objects = ()  # 9 keypoints a row: no symmetric vertex count
     poses_first = poses[:, :, 0] if poses.ndim == 5 else poses
     err_2d, err_3d, valid_2d, valid_3d, missing, valid_count, false_pos = evaluate_poses(
         poses_first, poses_gt, points_estimated, object_points_3d, object_points_3d_count, camera_data, diameters,
-        available, 5.0,
+        available, 5.0, symmetric_objects=symmetric_objects,
     )
     return (
         [valid_2d, valid_3d, valid_count, torch.zeros_like(valid_2d), err_2d, err_3d, missing, false_pos],
@@ -100,14 +105,16 @@ def evaluate_pose_estimates(points_estimated, poses, poses_gt, target_seg, objec
 
 def estimate_and_evaluate_poses(output_seg, target_seg, output_vertex, poses_gt, object_points_3d, camera_data,
                                 diameters, offsets, evaluation_points=None, object_points_3d_count=None,
-                                points_estimated=None, min_num=20, ransac_rounds=1, generator=None, draws=None):
+                                points_estimated=None, min_num=20, ransac_rounds=1, generator=None, draws=None,
+                                symmetric_objects=None):
     """RANSAC-voting evaluation (``pvnet`` and the other ``estimate_coords 0`` models).
 
     The argmax segmentation's class masks; for a PVNet output with one field
     stack per object ([b, h, w, oc * vc * 2]), each pixel's stack of its
     predicted class (zero on the background); RANSAC voting; PnP on the voted
     points with the loader's offsets undone; the metrics. ``generator`` and
-    ``draws`` go to ``ransac_voting_layer_all_masks``.
+    ``draws`` go to ``ransac_voting_layer_all_masks``; ``symmetric_objects``
+    as in :func:`evaluate_pose_estimates`.
 
     Returns ([valid_2d, valid_3d, valid_count, false_positive_mask, err_2d,
     err_3d, missing, false_positive], poses [b, oc, 3, 4], points [b, oc, vc, 2] (x, y)).
@@ -131,16 +138,18 @@ def estimate_and_evaluate_poses(output_seg, target_seg, output_vertex, poses_gt,
             mask_one_hot[:, :, :, 1:], output_vertex, 512, inlier_thresh=0.99, max_iter=ransac_rounds,
             min_num=min_num, max_num=30000, generator=generator, draws=draws)
     else:
-        points_estimated = points_estimated * torch.tensor([h, w], dtype=torch.float32, device=output_seg.device)
+        scale = torch.where(torch.arange(2, device=output_seg.device) == 0, float(h), float(w))  # (h, w) on the device
+        points_estimated = points_estimated * scale
 
     poses, false_positive_mask = estimate_poses(points_estimated, object_points_3d, camera_data, available, offsets)
     if evaluation_points is not None and object_points_3d_count is not None:
         object_points_3d, object_points_3d_count = _tile_eval_points(evaluation_points, object_points_3d_count, b, ic)
     else:
         object_points_3d_count = torch.full((b, oc, ic), 9, dtype=torch.int32, device=poses_gt.device)
+        symmetric_objects = ()
     err_2d, err_3d, valid_2d, valid_3d, missing, valid_count, false_pos = evaluate_poses(
         poses, poses_gt, points_estimated, object_points_3d, object_points_3d_count, camera_data, diameters,
-        available, 5.0,
+        available, 5.0, symmetric_objects=symmetric_objects,
     )
     return (
         [valid_2d, valid_3d, valid_count, false_positive_mask, err_2d, err_3d, missing, false_pos],

@@ -6,7 +6,8 @@ theta ~ pi; ``project_batch``; ``transform_points_back_batch``, which undoes
 the loader's crop / rotate / translate / scale on 2D points. On numpy, for
 the dataset and the visual dumps: the 2D rotation matrix, the forward point
 map, the loader's offsets, projection, quaternions and fixed model
-transforms, copied from the JAX package's host half.
+transforms, and the dataset converter's quaternion, homogeneous matrix and
+field of view, copied from the JAX package's host half.
 """
 
 import math
@@ -180,3 +181,38 @@ def quaternion_matrix_np(quaternion_xyzw, translation=None, wxyz_input=False):
         return R
     t = np.array(translation, dtype=np.float64, copy=True).reshape(3, 1)
     return np.concatenate([R, t], axis=1)
+
+
+def matrix_to_quaternion_np(M):
+    """Rotation matrix -> xyzw quaternion (w >= 0)."""
+    Qxx, Qyx, Qzx, Qxy, Qyy, Qzy, Qxz, Qyz, Qzz = np.asarray(M).flat
+    K = (
+        np.array(
+            [
+                [Qxx - Qyy - Qzz, 0, 0, 0],
+                [Qyx + Qxy, Qyy - Qxx - Qzz, 0, 0],
+                [Qzx + Qxz, Qzy + Qyz, Qzz - Qxx - Qyy, 0],
+                [Qyz - Qzy, Qzx - Qxz, Qxy - Qyx, Qxx + Qyy + Qzz],
+            ]
+        )
+        / 3.0
+    )
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[0, 1, 2, 3], np.argmax(vals)]
+    if q[3] < 0:
+        q *= -1
+    return q
+
+
+def create_transformation_matrix_np(R, t):
+    """Stack R (3x3) and t (3,) into a homogeneous 4x4 matrix."""
+    out = np.identity(4)
+    out[:3, :3] = np.asarray(R)[:3, :3]
+    out[:3, 3] = np.asarray(t).reshape(3)
+    return out
+
+
+def get_horizontal_width_angle_np(width, height, fx, fy):
+    """Horizontal field of view in degrees (offline tooling helper)."""
+    aspect = width / fx * (fy / height)
+    return np.rad2deg(2.0 * np.arctan(aspect * (0.5 / (fy / height))))

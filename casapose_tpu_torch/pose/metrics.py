@@ -17,10 +17,16 @@ err < 0.1 * diameter, 2D valid is err < ``allowed_error_2d`` px.
 
 ADD-S tiles both point sets: the JAX package takes [M, V, 4096] blocks
 (33 GB of float32 at M = 256, V = 7862); here blocks are at most
-``_TILE`` x ``_TILE`` points for ``_ROWS`` objects at a time, and only the
-symmetric objects' rows are computed, since ADD is taken for the others.
+``_TILE`` x ``_TILE`` points for ``_ROWS`` objects at a time. Which objects
+are symmetric is fixed for a run by its eval meshes: given as
+``symmetric_objects`` (a tuple of object indices, :func:`symmetric_objects`
+of the meshes' vertex counts), ADD-S runs on those objects' rows only;
+otherwise (a ``symmetric_mask`` tensor, or the rule on the counts tensor)
+on every row, selected afterwards, as the JAX package does. Neither reads a
+value back to the host.
 """
 
+import numpy as np
 import torch
 
 from casapose_tpu_torch.core.numerics import divide_no_nan, f32_precision
@@ -36,7 +42,7 @@ def _closest_point_mean(A, B, valid_a, valid_b):
     a_sq = torch.sum(A * A, dim=-1)
     b_sq = torch.sum(B * B, dim=-1)
     best = torch.full((m, v), float("inf"), dtype=A.dtype, device=A.device)
-    inf = torch.tensor(float("inf"), dtype=A.dtype, device=A.device)
+    inf = torch.full((), float("inf"), dtype=A.dtype, device=A.device)
     for r0 in range(0, m, _ROWS):
         rows = slice(r0, r0 + _ROWS)
         for i0 in range(0, v, _TILE):
@@ -54,6 +60,12 @@ def _closest_point_mean(A, B, valid_a, valid_b):
     return divide_no_nan(torch.sum(d * valid_a, dim=1), torch.sum(valid_a, dim=1))
 
 
+def symmetric_objects(vertex_counts):
+    """The object indices whose eval mesh has a symmetric vertex count, from host counts [oc] or [oc, 1]."""
+    counts = np.asarray(vertex_counts).reshape(-1).tolist()
+    return tuple(o for o, n in enumerate(counts) if int(n) in DEFAULT_SYMMETRIC_VERTEX_COUNTS)
+
+
 def evaluate_poses(
     poses,
     poses_gt,
@@ -65,6 +77,7 @@ def evaluate_poses(
     valid_points_filter,
     allowed_error_2d=5.0,
     symmetric_mask=None,
+    symmetric_objects=None,
 ):
     """Batched pose evaluation.
 
@@ -78,6 +91,9 @@ def evaluate_poses(
       diameters: [b, oc, ic, 1].
       valid_points_filter: [b, oc] int (GT object present).
       symmetric_mask: optional [b, oc] bool; default: the vertex-count rule.
+      symmetric_objects: optional tuple of the symmetric object indices, known
+        on the host (``symmetric_mask`` is then ignored): ADD-S on their rows
+        only. Without it ADD-S runs on every row.
     Returns:
       (err_2d, err_3d, valid_2d, valid_3d, missing, valid_count, false_pos),
       each float32 [oc], summed over the batch.
@@ -114,17 +130,27 @@ def evaluate_poses(
         err_2d = divide_no_nan(torch.sum(torch.linalg.vector_norm(xy_gt - xy_est, dim=-1) * vvalid_f, dim=1), n_valid)
         add = divide_no_nan(torch.sum(torch.linalg.vector_norm(cam_gt - cam_est, dim=-1) * vvalid_f, dim=1), n_valid)
 
-        if symmetric_mask is None:
-            sym = torch.zeros_like(counts, dtype=torch.bool)
-            for c in DEFAULT_SYMMETRIC_VERTEX_COUNTS:
-                sym = sym | (counts == c)
+        if symmetric_objects is not None:
+            sym_obj = sorted(set(symmetric_objects))
+
+            def rows(x):  # [M, ...] -> the symmetric objects' rows [b * len(sym_obj), ...], by static slices
+                x = x.reshape(b, oc, *x.shape[1:])
+                return torch.cat([x[:, o : o + 1] for o in sym_obj], dim=1).reshape(-1, *x.shape[2:])
+
+            err_3d = add
+            if sym_obj:
+                adds = _closest_point_mean(rows(cam_gt), rows(cam_est), rows(vvalid_f), rows(vvalid)).reshape(b, -1)
+                cols = dict(zip(sym_obj, adds.unbind(1)))
+                err_3d = torch.stack([cols.get(o, col) for o, col in enumerate(add.reshape(b, oc).unbind(1))],
+                                     dim=1).reshape(M)
         else:
-            sym = symmetric_mask.reshape(M)
-        adds = torch.zeros_like(add)
-        rows = torch.nonzero(sym).flatten()
-        if rows.numel():
-            adds[rows] = _closest_point_mean(cam_gt[rows], cam_est[rows], vvalid_f[rows], vvalid[rows])
-        err_3d = torch.where(sym, adds, add)
+            if symmetric_mask is None:
+                sym = torch.zeros_like(counts, dtype=torch.bool)
+                for c in DEFAULT_SYMMETRIC_VERTEX_COUNTS:
+                    sym = sym | (counts == c)
+            else:
+                sym = symmetric_mask.reshape(M)
+            err_3d = torch.where(sym, _closest_point_mean(cam_gt, cam_est, vvalid_f, vvalid), add)
 
         valid_3d = (err_3d < diam * 0.1) & active
         valid_2d = (err_2d < allowed_error_2d) & active

@@ -17,11 +17,12 @@ Phases, one line each with its seconds:
      b=32 its kernel_ms on these random dense labels (every segment of 32
      pixels mixes classes: the kernel's slowest case);
   5. step: the flagship inference step (casapose_c_gcu5 -> CC-filtered LS
-     voting -> EPnP+LM) at 480x640, 8 objects, 9 keypoints, float32 with
+     voting, the CC labels by the CC kernel -> EPnP+LM) at 480x640, 8 objects, 9 keypoints, float32 with
      TF32 off, random weights from a seed, at batch 1 and 32 on a zero and a
      noise image; every kernel must launch, every pose must be finite, and
      the voted points must agree with the same step run through the
-     kernels' plain versions on the card; how the two steps' poses
+     kernels' plain versions on the card, and every CC launch's labels equal
+     the plain loop's on its masks (sweeps counted); how the two steps' poses
      reproject is reported (random weights make the PnP problems
      ill-posed; phases 3 and 8 hold the poses elementwise on planted
      problems);
@@ -137,8 +138,27 @@ Phases, one line each with its seconds:
      live function's, the voting and PnP launches counted inside the loaded
      program, its size, export seconds and ms per call;
  26. clis: python -m casapose_tpu_torch.test_minimal and python -m
-     casapose_tpu_torch.export_model on a written 480x640 scene.
-Then a "kernels" JSON line, and as the last line
+     casapose_tpu_torch.export_model on a written 480x640 scene;
+ 27. cc: the CC kernel (csrc/cc.cu, the JAX package's lax.while_loop of flood
+     sweeps in one launch) against its plain loop on the main path's own
+     masks (b=32, 256 of 120x160, shared memory), at full resolution (the
+     same batch's 480x640 class masks, device memory) and on two serpentines
+     that reach the 64-sweep cap: labels exactly equal, sweeps counted,
+     kernel_ms, call_ms, the plain loop's ms and a bound. Phases 5, 8, 13,
+     14 and 22 hold each CC launch of their paths against the plain loop and
+     count its sweeps and the masks at the cap;
+ 28. sync: the inference step (float32, bfloat16) and the LS eval step
+     (float32, bfloat16) at batch 1 and 32 under
+     torch.cuda.set_sync_debug_mode("error"), after one call each;
+ 29. pipeline: the eval harness serial (CASAPOSE_EVAL_PIPELINE=0) against
+     pipelined on a written 480x640 scene of 12 batches of 4, serial,
+     pipelined, pipelined, serial: files equal apart from the time columns,
+     steady img/s and host phases of each run;
+ 30. converter: python -m casapose_tpu_torch.dataset_converter on a
+     synthetic BOP scene written here (render and reuse masks), then the
+     eval harness on the converted scene.
+Then a "kernels" JSON line (voting, pnp, lm_refine, and cc, which replaces
+no pallas_call), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -703,12 +723,13 @@ def phase_eval_paths(dev, kernels):
     # such planted problems have several minima. A 128-px focal length makes the same pixels a wide angle.
     short = [[128.0, 0.0, W / 2], [0.0, 128.0, H / 2], [0.0, 0.0, 1.0]]
     paths = [
-        ("eval step casapose_c_gcu4_bilat on resnet50", 32, ("voting", "pnp"),
+        ("eval step casapose_c_gcu4_bilat on resnet50", 32, ("voting", "pnp", "cc"),
          eval_opt(EVAL_CHUNK, "--modelname", "casapose_c_gcu4_bilat", "--backbonename", "resnet50")),
         ("eval step pvnet RANSAC", 4, ("pnp",),
          eval_opt(0, "--modelname", "pvnet", "--estimate_confidence", "0", "--estimate_coords", "0",
                   "--ransac_rounds", "20")),
-        ("eval step casapose_c_gcu5 bfloat16", 32, ("voting", "pnp"), eval_opt(EVAL_CHUNK, "--compute_dtype", "bfloat16")),
+        ("eval step casapose_c_gcu5 bfloat16", 32, ("voting", "pnp", "cc"),
+         eval_opt(EVAL_CHUNK, "--compute_dtype", "bfloat16")),
     ]
     for label, b, path_kernels, opt in paths:
         model = build_model_from_opt(opt, OBJECTS, device=dev, generator=torch.Generator().manual_seed(0))
@@ -745,6 +766,7 @@ def phase_bf16_inference(dev, kernels, f32_times):
     import torch
 
     from casapose_tpu_torch.entry import build_inference_step
+    from casapose_tpu_torch.ops.connected_components import connected_components_kernel
     from casapose_tpu_torch.ops.plain import plain_kernels
     from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel
     from casapose_tpu_torch.ops.voting_kernel import voting_accumulate
@@ -758,15 +780,17 @@ def phase_bf16_inference(dev, kernels, f32_times):
         kp3 = torch.from_numpy(rng.uniform(-0.05, 0.05, (b, OBJECTS, 1, K_POINTS, 3)).astype(np.float32)).to(dev)
         cam = torch.tensor(CAMERA, device=dev).expand(b, 3, 3).contiguous()
         cases.append((b, torch.from_numpy(rng.normal(size=(b, H, W, 3)).astype(np.float32)).to(dev), kp3, cam))
-    counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel}
+    counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel, "cc": connected_components_kernel}
     for fn in counters.values():
         fn.launches = 0
-    results = [step(img, kp3, cam, return_points=True) for _, img, kp3, cam in cases]
+    with cc_recording() as cc_records:
+        results = [step(img, kp3, cam, return_points=True) for _, img, kp3, cam in cases]
     torch.cuda.synchronize()
     for name, fn in counters.items():
         kernels[name]["launches_by_path"]["inference step bfloat16"] = fn.launches
     if any(fn.launches == 0 for fn in counters.values()):
         raise AssertionError(f"a kernel of the bf16 step never launched: { {n: f.launches for n, f in counters.items()} }")
+    hold_cc("inference step bfloat16", cc_records, kernels, t0, "bf16")
     bf16_times = {}
     for (b, img, kp3, cam), (poses, coords) in zip(cases, results):
         with plain_kernels():
@@ -827,7 +851,7 @@ def phase_lm(dev, kernels):
 
 
 def drive_eval_path(label, step, planted, kernels, path_kernels, t0, phase="eval", hold_planted=True,
-                    plain=("voting", "pnp")):
+                    plain=("voting", "pnp", "cc")):
     """Drive one eval path and hold its kernels against their plain versions; returns the outputs {b: out}.
 
     ``planted`` is {b: (batch, planted poses)}. Every kernel count is set to
@@ -837,7 +861,8 @@ def drive_eval_path(label, step, planted, kernels, path_kernels, t0, phase="eval
     the whole step again through the plain versions of ``plain`` (voted
     points rtol 1e-4 / atol 5e-3 px, losses rtol 1e-4, gt / missing / false
     positive counts equal), each voting launch against its plain version run in
-    float64 (as phase 4), each PnP launch against its plain version on its
+    float64 (as phase 4), each CC launch against the plain loop (labels
+    exactly, sweeps counted), each PnP launch against its plain version on its
     inputs (atol R 1e-4, t 2e-4, as phase 3) and every present object's
     solve against its planted pose (the same atol; with ``hold_planted``
     False only counted: where one voted point lies far from the others'
@@ -848,12 +873,13 @@ def drive_eval_path(label, step, planted, kernels, path_kernels, t0, phase="eval
 
     import casapose_tpu_torch.ops.voting as voting
     import casapose_tpu_torch.pose.epnp as epnp
+    from casapose_tpu_torch.ops.connected_components import connected_components_kernel
     from casapose_tpu_torch.ops.plain import plain_kernels
     from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel, solve_pnp_plain
     from casapose_tpu_torch.ops.voting_kernel import voting_accumulate, voting_accumulate_plain
     from casapose_tpu_torch.pose.geometry import rodrigues, rotation_to_rvec
 
-    counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel}
+    counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel, "cc": connected_components_kernel}
     recorded = {b: {"voting": [], "pnp": []} for b in planted}
     current = []
 
@@ -872,9 +898,10 @@ def drive_eval_path(label, step, planted, kernels, path_kernels, t0, phase="eval
         fn.launches = 0
     epnp.solve_pnp_kernel, voting.voting_accumulate = record_pnp, record_voting
     try:
-        for b, (batch, _) in planted.items():
-            current.append(recorded[b])
-            outs[b] = step(batch)
+        with cc_recording() as cc_records:
+            for b, (batch, _) in planted.items():
+                current.append(recorded[b])
+                outs[b] = step(batch)
     finally:
         epnp.solve_pnp_kernel, voting.voting_accumulate = solve_pnp_kernel, voting_accumulate
     torch.cuda.synchronize()
@@ -883,6 +910,8 @@ def drive_eval_path(label, step, planted, kernels, path_kernels, t0, phase="eval
         kernels[name]["launches_by_path"][label] = n
     if any(launches[n] == 0 for n in path_kernels):
         raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+    if launches["cc"]:
+        hold_cc(label, cc_records, kernels, t0, phase)
     for b, out in outs.items():
         batch, truth = planted[b]
         with plain_kernels(*plain):
@@ -973,7 +1002,7 @@ def phase_eval(dev, kernels):
     verts, counts = eval_meshes()
     step = build_test_step(model, opt, OBJECTS, verts, counts, loss_weights_from_opt(opt))
     planted = {b: planted_eval_batch(model, opt, b, seed=b, dev=dev) for b in (1, 32)}
-    drive_eval_path("eval step", step, planted, kernels, ("voting", "pnp"), t0)
+    drive_eval_path("eval step", step, planted, kernels, ("voting", "pnp", "cc"), t0)
     return model, step, {b: batch for b, (batch, _) in planted.items()}
 
 
@@ -1048,9 +1077,11 @@ def phase_eval_timings(model, step, batches, lm_inputs, kernels):
     from casapose_tpu_torch.ops.vectorfield import get_all_vectorfields
     from casapose_tpu_torch.ops.voting import ls_voting
     from casapose_tpu_torch.pose.evaluation import evaluate_pose_estimates
+    from casapose_tpu_torch.pose.metrics import symmetric_objects
 
     t0 = time.time()
     opt = eval_opt(EVAL_CHUNK)
+    sym = symmetric_objects(eval_meshes()[1])  # as build_test_step hands them to the step
     verts, counts = (torch.from_numpy(a).to(batches[1]["img"].device) for a in eval_meshes())
     for b, batch in batches.items():
         ms = cuda_ms(lambda: step(batch), 5 if b == 1 else 2, warmup=1)
@@ -1080,11 +1111,17 @@ def phase_eval_timings(model, step, batches, lm_inputs, kernels):
                 "keypoint loss + PnP": cuda_ms(kp, 3),
                 "metrics (ADD(-S)/2D)": cuda_ms(lambda: evaluate_pose_estimates(
                     points_est, poses_est, c["poses_gt"], tseg, c["keypoints3d"], c["camera"], c["diameters"],
-                    evaluation_points=verts, object_points_3d_count=counts, min_num=1), 3),
+                    evaluation_points=verts, object_points_3d_count=counts, min_num=1, symmetric_objects=sym), 3),
+                # The metrics' split: ADD and 2D on every row, without the symmetric objects' ADD-S.
+                "metrics ADD/2D only": cuda_ms(lambda: evaluate_pose_estimates(
+                    points_est, poses_est, c["poses_gt"], tseg, c["keypoints3d"], c["camera"], c["diameters"],
+                    evaluation_points=verts, object_points_3d_count=counts, min_num=1, symmetric_objects=()), 3),
                 "losses (direction fields, composite, proxy)": cuda_ms(losses, 3),
             }
         say("time", t0, f"eval stages on {n} image(s), ms/image: "
-            + "; ".join(f"{k} {v / n:.3f}" for k, v in stages.items()))
+            + "; ".join(f"{k} {v / n:.3f}" for k, v in stages.items())
+            + f"; so ADD-S on the {len(sym)} symmetric objects' rows (V = 7862 and 3417) "
+            f"{(stages['metrics (ADD(-S)/2D)'] - stages['metrics ADD/2D only']) / n:.3f}")
 
     R0, t0_, p2, p3, Kn = lm_inputs
     lm = kernels["lm_refine"]
@@ -1140,11 +1177,13 @@ SHORT_FOCAL = 128.0
 
 
 def count_launches():
-    """The three kernel wrappers, whose ``launches`` counts every launch of their kernel."""
+    """The four kernel wrappers, whose ``launches`` counts every launch of their kernel."""
+    from casapose_tpu_torch.ops.connected_components import connected_components_kernel
     from casapose_tpu_torch.ops.pnp_kernel import lm_refine, solve_pnp_kernel
     from casapose_tpu_torch.ops.voting_kernel import voting_accumulate
 
-    return {"voting": voting_accumulate, "pnp": solve_pnp_kernel, "lm_refine": lm_refine}
+    return {"voting": voting_accumulate, "pnp": solve_pnp_kernel, "lm_refine": lm_refine,
+            "cc": connected_components_kernel}
 
 
 def train_batch(b, seed, size=None, scatter=0, focal=572.0):
@@ -2000,12 +2039,14 @@ def phase_int8(dev, kernels, f32_times, bf16_times):
         cases.append((b, torch.from_numpy(rng.normal(size=(b, H, W, 3)).astype(np.float32)).to(dev), kp3, cam))
     for fn in counters.values():
         fn.launches = 0
-    results = [step(img, kp3, cam, return_points=True) for _, img, kp3, cam in cases]
+    with cc_recording() as cc_records:
+        results = [step(img, kp3, cam, return_points=True) for _, img, kp3, cam in cases]
     torch.cuda.synchronize()
-    for name in ("voting", "pnp"):
+    for name in ("voting", "pnp", "cc"):
         kernels[name]["launches_by_path"]["inference step int8"] = counters[name].launches
-    if counters["voting"].launches == 0 or counters["pnp"].launches == 0:
+    if any(counters[name].launches == 0 for name in ("voting", "pnp", "cc")):
         raise AssertionError(f"a kernel of the int8 step never launched: { {n: f.launches for n, f in counters.items()} }")
+    hold_cc("inference step int8", cc_records, kernels, t0, "int8")
     for (b, img, kp3, cam), (poses, coords) in zip(cases, results):
         if tuple(poses.shape) != (b, OBJECTS, 1, 3, 4) or not torch.isfinite(poses).all():
             raise AssertionError(f"int8 step b={b}: poses not finite or of the wrong shape {tuple(poses.shape)}")
@@ -2087,7 +2128,8 @@ def phase_int8(dev, kernels, f32_times, bf16_times):
     emodel = build_model_from_opt(opt, OBJECTS, device=dev, generator=torch.Generator().manual_seed(0))
     estep = build_test_step(emodel, opt, OBJECTS, verts, counts, loss_weights_from_opt(opt))
     planted = {32: planted_eval_batch(emodel, opt, 32, seed=32, dev=dev)}
-    drive_eval_path("eval step int8", estep, planted, kernels, ("voting", "pnp"), t0, phase="int8", hold_planted=False)
+    drive_eval_path("eval step int8", estep, planted, kernels, ("voting", "pnp", "cc"), t0, phase="int8",
+                    hold_planted=False)
     batch = planted[32][0]
     ms = cuda_ms(lambda: estep(batch), 2, warmup=1)
     base = torch.cuda.memory_allocated()
@@ -2265,6 +2307,320 @@ def phase_serving_clis(dev):
             say("clis", t0, f"{module} {' '.join(extra[2:]) or ''}: " + " | ".join(lines))
 
 
+# The CC labelling kernel (csrc/cc.cu): its launches recorded on each path and held against the plain loop.
+def serpentine(h, w, vertical=False):
+    """One snake of 1-pixel corridors joined at alternating ends, [1, h, w] bool: a flood sweep carries a label one
+    corridor further, so it needs about as many sweeps as it has corridors (w / 2 vertical ones, h / 2 across)."""
+    if vertical:
+        return np.ascontiguousarray(serpentine(w, h)[0].T[None])
+    fg = np.zeros((1, h, w), bool)
+    for r in range(0, h, 2):
+        fg[0, r, :] = True
+        if r + 1 < h:
+            fg[0, r + 1, (w - 1) if (r // 2) % 2 == 0 else 0] = True
+    return fg
+
+
+class cc_recording:
+    """Inside: every call of the CC kernel's wrapper, as the ``casapose::connected_components`` operator makes it, is
+    recorded as (fg, labels, sweeps per mask); the wrapper itself still counts its launches."""
+
+    def __enter__(self):
+        import casapose_tpu_torch.ops.connected_components as cc
+
+        self.cc, self.real, self.records = cc, cc.connected_components_kernel, []
+
+        def record(fg, max_sweeps=cc.MAX_SWEEPS, return_sweeps=False):
+            labels, sweeps = self.real(fg, max_sweeps, return_sweeps=True)
+            self.records.append((fg.clone(), labels.clone(), sweeps.clone(), max_sweeps))
+            return (labels, sweeps) if return_sweeps else labels
+
+        cc.connected_components_kernel = record
+        return self.records
+
+    def __exit__(self, *exc):
+        self.cc.connected_components_kernel = self.real
+
+
+def hold_cc(label, records, kernels, t0, phase):
+    """Each recorded CC launch of a path against the plain loop on its masks: labels exactly equal, and the kernel's
+    largest per-mask sweep count equal to the loop's count. Records the sweeps each call needed, and how many masks
+    reached the cap with labels that are not final, under ``label``."""
+    import torch
+
+    from casapose_tpu_torch.ops.connected_components import connected_components_plain
+
+    if not records:
+        raise AssertionError(f"{label}: no CC launch was recorded")
+    sweeps, at_cap, not_final, shapes = [], 0, 0, set()
+    for fg, labels, per_mask, cap in records:
+        plain, n = connected_components_plain(fg, cap, return_sweeps=True)
+        if not torch.equal(labels, plain):
+            raise AssertionError(f"{label}: the CC kernel's labels differ from the plain loop's on {tuple(fg.shape)} "
+                                 f"in {int((labels != plain).sum())} pixels")
+        if int(per_mask.max()) != n:
+            raise AssertionError(f"{label}: the CC kernel ran {int(per_mask.max())} sweeps, the plain loop {n}")
+        sweeps.append(n)
+        shapes.add(tuple(fg.shape))
+        if n == cap:
+            at_cap += int((per_mask == cap).sum())
+            not_final += int((connected_components_plain(fg, 4096) != plain).reshape(fg.shape[0], -1).any(1).sum())
+    kernels["cc"]["sweeps_by_path"][label] = {"calls": len(records), "shapes": sorted(shapes), "sweeps": sweeps,
+                                              "masks_at_cap": at_cap, "masks_not_final_at_cap": not_final}
+    say(phase, t0, f"{label}: {len(records)} CC launches on masks {sorted(shapes)}, labels equal to the plain loop's "
+        f"exactly; sweeps per call {sweeps} (cap {records[0][3]}); masks at the cap {at_cap}, of them not final "
+        f"{not_final}")
+
+
+def phase_cc(dev, kernels, main_fg, full_fg):
+    """27. The CC kernel against its plain loop at the default resolution (the main path's own masks, phase 5's
+    b=32 noise batch: 256 masks of 120x160), at full resolution (the same batch's 480x640 class masks, the
+    --cc_filter_downsample 1 path) and on serpentines that reach the 64-sweep cap; labels exactly equal, sweeps
+    counted; kernel_ms, call_ms and the plain loop's ms at both resolutions, with a byte bound."""
+    import torch
+
+    from casapose_tpu_torch.ops.connected_components import (
+        MAX_SWEEPS,
+        connected_components_kernel,
+        connected_components_plain,
+    )
+
+    t0 = time.time()
+    k = kernels["cc"]
+    cases = [("default resolution, the main path's masks", main_fg), ("full resolution", full_fg),
+             ("serpentine 120x160 (80 vertical corridors)", torch.from_numpy(serpentine(120, 160, True)).to(dev)),
+             ("serpentine 480x640 (240 corridors across)", torch.from_numpy(serpentine(480, 640)).to(dev))]
+    for name, fg in cases:
+        labels, per_mask = connected_components_kernel(fg, return_sweeps=True)
+        labels2 = connected_components_kernel(fg)
+        plain, n = connected_components_plain(fg, return_sweeps=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(labels, plain) and torch.equal(labels, labels2)):
+            raise AssertionError(f"cc {name}: the kernel's labels differ from the plain loop's "
+                                 f"({int((labels != plain).sum())} pixels) or between two runs")
+        if int(per_mask.max()) != n:
+            raise AssertionError(f"cc {name}: the kernel ran {int(per_mask.max())} sweeps, the plain loop {n}")
+        if name.startswith("serpentine") and n != MAX_SWEEPS:
+            raise AssertionError(f"cc {name}: {n} sweeps, expected the cap {MAX_SWEEPS}")
+        m, h, w = fg.shape
+        small = h * w <= 120 * 160  # the shared-memory path; larger masks sweep in device memory, ~100x slower
+        own = kernel_ms("cc", lambda: connected_components_kernel(fg), iters=20 if small else 4, reps=5 if small else 1)
+        call = cuda_ms(lambda: connected_components_kernel(fg), 20 if small else 2)
+        plain_ms = cuda_ms(lambda: connected_components_plain(fg), 2, warmup=0)
+        # Bytes: each mask read once (1 byte a pixel), its labels written once (4 bytes), a sweep count a mask.
+        # Operations: what these masks need, each mask's own sweeps over its pixels, ~8 integer operations a pixel
+        # and sweep (both passes: read, test, max, compare, store), at the float32 rate outside the tensor cores
+        # (the table gives no int32 rate).
+        c_bytes = m * h * w * 5 + m * 4
+        c_ops = int(per_mask.sum()) * h * w * 8
+        bound = max(c_bytes / PEAK_BYTES_PER_S, c_ops / PEAK_F32_FLOP_PER_S) * 1e3
+        by = "bytes" if c_bytes / PEAK_BYTES_PER_S >= c_ops / PEAK_F32_FLOP_PER_S else "operations"
+        k.setdefault("by_case", {})[name] = {"shape": [m, h, w], "sweeps": n, "kernel_ms": own, "call_ms": call,
+                                             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        if name.startswith("default"):
+            k.update(kernel_ms=own, ms=own, call_ms=call, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     library_ms=None)
+        say("cc", t0, f"{name} {[m, h, w]}: labels equal to the plain loop's exactly, the same on a second run; "
+            f"{n} sweeps (per mask up to {int(per_mask.max())}, median {int(per_mask.float().median())}); kernel_ms "
+            f"{own:.4f} ({KERNEL_MS_METHOD['cc']}), call_ms {call:.4f}, plain loop {plain_ms:.3f} ms, bound "
+            f"{bound:.6f} ms ({by}), {bound / own:.2%} of it")
+
+
+def phase_sync(dev):
+    """28. The inference step (float32 and bfloat16) and the LS evaluation step (float32 and bfloat16, eval_chunk 8)
+    at batch 1 and 32 under torch.cuda.set_sync_debug_mode("error"): no call reads a value back to the host. Each
+    step runs once before (its one-time set-up: cuDNN plans, kernel libraries loaded, the voting grid sized)."""
+    import torch
+
+    from casapose_tpu_torch.entry import build_inference_step
+    from casapose_tpu_torch.eval import build_test_step, loss_weights_from_opt
+    from casapose_tpu_torch.models.registry import build_model_from_opt
+
+    t0 = time.time()
+    rng = np.random.default_rng(28)
+    checked = []
+
+    def strict(label, fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        checked.append(label)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        step, model = build_inference_step(OBJECTS, K_POINTS, H, W, device="cuda", dtype=dtype,
+                                           generator=torch.Generator().manual_seed(0))
+        for b in (1, 32):
+            img = torch.from_numpy(rng.normal(size=(b, H, W, 3)).astype(np.float32)).to(dev)
+            kp3 = torch.from_numpy(rng.uniform(-0.05, 0.05, (b, OBJECTS, 1, K_POINTS, 3)).astype(np.float32)).to(dev)
+            cam = torch.tensor(CAMERA, device=dev).expand(b, 3, 3).contiguous()
+            strict(f"inference {str(dtype)[6:]} b={b}", lambda: step(img, kp3, cam))
+        del step, model
+    verts, counts = eval_meshes()
+    for flags in ((), ("--compute_dtype", "bfloat16")):
+        opt = eval_opt(EVAL_CHUNK, *flags)
+        model = build_model_from_opt(opt, OBJECTS, device=dev, generator=torch.Generator().manual_seed(0))
+        step = build_test_step(model, opt, OBJECTS, verts, counts, loss_weights_from_opt(opt))
+        for b in (1, 32):
+            batch, _ = planted_eval_batch(model, opt, b, seed=b, dev=dev)
+            strict(f"eval {opt.compute_dtype} b={b}", lambda: step(batch))
+        del model, step
+    torch.cuda.empty_cache()
+    say("sync", t0, f"no synchronizing CUDA operation under set_sync_debug_mode('error'): {', '.join(checked)}")
+
+
+def harness_files(evalf):
+    """Every file the eval harness wrote under ``evalf``, time columns left out: {relative path: text or bytes}."""
+    out = {}
+    for d, _, fs in os.walk(evalf):
+        for f in fs:
+            path = os.path.join(d, f)
+            rel = os.path.relpath(path, evalf)
+            with open(path, "rb") as fh:
+                data = fh.read()
+            if rel in ("loss_test_eval.csv", "test_summary_eval.csv", os.path.join("poses_out", "bop_evaluation.csv")):
+                lines = data.decode().strip().splitlines()
+                col = 6 if rel == "loss_test_eval.csv" else lines[0].split(",").index("time")
+                data = [lines[0]] + [",".join(x for i, x in enumerate(r.split(",")) if i != col) for r in lines[1:]]
+            out[rel] = data
+    return out
+
+
+def phase_pipeline(dev, n_images=48, b=4, extra=()):
+    """29. The eval harness (run_evaluation, in this process) serial (CASAPOSE_EVAL_PIPELINE=0) against pipelined (the
+    default) on a written 480x640, 8-object scene of 48 images at --batchsize_test 4 (12 batches), in the order serial,
+    pipelined, pipelined, serial: the files each run writes equal apart from their time columns; steady img/s of each
+    run (batch 0's device work excluded) and its host phases."""
+    from casapose_tpu_torch.eval import run_evaluation
+    from casapose_tpu_torch.utils.config import parse_config
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        names = write_scene(tmp, n_images=n_images, seed=29)
+        runs = []
+        try:
+            for i, mode in enumerate(("0", "1", "1", "0")):
+                os.environ["CASAPOSE_EVAL_PIPELINE"] = mode
+                evalf = os.path.join(tmp, f"eval{i}")
+                opt = parse_config(["-c", os.path.join(ROOT, "configs", "config_8.ini"), "--objects_to_copy_list", "",
+                                    "--datatest", os.path.join(tmp, "data"), "--data", os.path.join(tmp, "none"),
+                                    "--datameshes", os.path.join(tmp, "models"), "--object", ",".join(names),
+                                    "--batchsize_test", str(b), "--write_poses", "1", "--loginterval", "100",
+                                    "--outf", os.path.join(tmp, f"out{i}"), "--evalf", evalf, *extra])
+                res = run_evaluation(opt, device=str(dev))
+                if res["total_images"] != n_images:
+                    raise AssertionError(f"harness run {i}: {res['total_images']} of {n_images} images evaluated")
+                runs.append((mode, res, harness_files(evalf)))
+        finally:
+            os.environ.pop("CASAPOSE_EVAL_PIPELINE", None)
+    for mode, res, files in runs[1:]:
+        if files != runs[0][2]:
+            bad = sorted(k for k in set(files) | set(runs[0][2]) if files.get(k) != runs[0][2].get(k))
+            raise AssertionError(f"the harness with CASAPOSE_EVAL_PIPELINE={mode} wrote other files than the serial "
+                                 f"run: {bad[:5]}")
+    for i, (mode, res, files) in enumerate(runs):
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in res["phase_seconds"].items())
+        say("pipeline", t0, f"run {i + 1} {'pipelined' if mode == '1' else 'serial'}: steady "
+            f"{res['steady_img_per_sec']:.2f} img/s, wall {res['wall_seconds']:.3f} s for {res['total_images']} images "
+            f"(time column mean {res['mean_time']:.5f} s/batch); host seconds {phases}")
+    say("pipeline", t0, f"{len(runs[0][2])} files from each run, equal apart from their time columns (CSVs, "
+        "summary, pose files)")
+
+
+def write_bop_scene(root, n_images=4, seed=30):
+    """A synthetic BOP dataset at 640x480: two cube objects (quads) with keypoint PLYs and models_info.json, one
+    scene of ``n_images`` images with scene_camera / scene_gt / scene_gt_info and mask_visib images."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    models = os.path.join(root, "models")
+    os.makedirs(models)
+    s = 40.0
+    corners = [[x, y, z] for x in (-s, s) for y in (-s, s) for z in (-s, s)]
+    quads = [[0, 1, 3, 2], [4, 5, 7, 6], [0, 1, 5, 4], [2, 3, 7, 6], [0, 2, 6, 4], [1, 3, 7, 5]]
+    vertex = "property float x\nproperty float y\nproperty float z\n"
+    for oid in (1, 2):
+        with open(os.path.join(models, f"obj_{oid:06d}.ply"), "w") as f:
+            f.write(f"ply\nformat ascii 1.0\nelement vertex 8\n{vertex}"
+                    "element face 6\nproperty list uchar int vertex_indices\nend_header\n")
+            f.writelines(f"{v[0]} {v[1]} {v[2]}\n" for v in corners)
+            f.writelines("4 " + " ".join(map(str, q)) + "\n" for q in quads)
+        with open(os.path.join(models, f"obj_{oid:06d}_keypoints.ply"), "w") as f:
+            f.write(f"ply\nformat ascii 1.0\nelement vertex {K_POINTS}\n{vertex}end_header\n")
+            f.writelines(f"{v[0]} {v[1]} {v[2]}\n" for v in rng.uniform(-s, s, (K_POINTS, 3)))
+    with open(os.path.join(models, "models_info.json"), "w") as f:
+        json.dump({str(oid): {"diameter": 2 * s * 3 ** 0.5} for oid in (1, 2)}, f)
+    scene = os.path.join(root, "train_pbr", "000000")
+    for sub in ("rgb", "mask_visib"):
+        os.makedirs(os.path.join(scene, sub))
+    K = np.array(CAMERA)
+    cams, gts, infos = {}, {}, {}
+    for i in range(n_images):
+        cams[str(i)] = {"cam_K": K.reshape(-1).tolist(), "depth_scale": 0.1}
+        objs, inf = [], []
+        for j, oid in enumerate((1, 2)):
+            R = random_rotations(rng, 1)[0]
+            t = [120.0 * (j - 0.5), 10.0 * i, 700.0]
+            objs.append({"obj_id": oid, "cam_R_m2c": R.reshape(-1).tolist(), "cam_t_m2c": t})
+            u, v = (K @ np.array(t) / t[2])[:2]
+            box = [int(u) - 50, int(v) - 50, 100, 100]
+            inf.append({"bbox_obj": box, "bbox_visib": box, "px_count_all": 10000, "px_count_valid": 10000,
+                        "px_count_visib": 10000, "visib_fract": 1.0})
+            mask = np.zeros((H, W), np.uint8)
+            mask[box[1] : box[1] + 100, box[0] : box[0] + 100] = 255
+            Image.fromarray(mask).save(os.path.join(scene, "mask_visib", f"{i:06d}_{j:06d}.png"))
+        gts[str(i)], infos[str(i)] = objs, inf
+        Image.fromarray(rng.integers(0, 255, (H, W, 3)).astype(np.uint8)).save(os.path.join(scene, "rgb", f"{i:06d}.png"))
+    for name, data in (("scene_camera.json", cams), ("scene_gt.json", gts), ("scene_gt_info.json", infos)):
+        with open(os.path.join(scene, name), "w") as f:
+            json.dump(data, f)
+    return ["obj_000001", "obj_000002"]
+
+
+def phase_converter(dev):
+    """30. python -m casapose_tpu_torch.dataset_converter on a synthetic BOP scene written here (reuse masks, and
+    render masks from the cube meshes), then one batch of the port's eval harness on the converted scene."""
+    from PIL import Image
+
+    from casapose_tpu_torch.eval import run_evaluation
+    from casapose_tpu_torch.utils.config import parse_config
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        names = write_bop_scene(os.path.join(tmp, "bop"))
+        for mode in ("render", "reuse"):
+            out = os.path.join(tmp, mode)
+            proc = subprocess.run([sys.executable, "-m", "casapose_tpu_torch.dataset_converter", os.path.join(tmp, "bop"),
+                                   out, "--mask", mode, "--copy_meshes", "1"], cwd=ROOT,
+                                  env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"the converter failed (rc {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                                     f"{proc.stderr[-3000:]}")
+            rgb = os.path.join(out, "train_pbr", "000000", "rgb")
+            ids = [set(np.unique(np.asarray(Image.open(os.path.join(rgb, f"{i:06d}.seg.png"))))) for i in range(4)]
+            if any(s != {0, 1, 2} for s in ids):
+                raise AssertionError(f"converter {mode}: the masks hold the ids {ids}, expected 0, 1 and 2 each")
+            say("converter", t0, f"{mode} masks: converted 4 images of {W}x{H} with 2 objects, masks hold ids 0, 1, 2")
+        opt = parse_config(["--datatest", os.path.join(tmp, "reuse", "train_pbr"), "--data", os.path.join(tmp, "none"),
+                            "--datameshes", os.path.join(tmp, "reuse", "models"), "--object", ",".join(names),
+                            "--modelname", "casapose_c_gcu5", "--estimate_confidence", "1", "--estimate_coords", "1",
+                            "--no_points", str(K_POINTS), "--imagesize_test", str(H), str(W), "--batchsize_test", "4",
+                            "--min_object_size_test", "1", "--outf", os.path.join(tmp, "out"),
+                            "--evalf", os.path.join(tmp, "eval")])
+        res = run_evaluation(opt, device=str(dev))
+        with open(os.path.join(tmp, "eval", "test_summary_eval.csv")) as f:
+            summary = f.read().strip().splitlines()
+        values = [float(x) for x in summary[1].split(",")]
+        if res["total_images"] != 4 or not np.isfinite(values).all() or not np.isfinite(res["loss"]).all():
+            raise AssertionError(f"the eval harness on the converted scene: {res['total_images']} images, {summary}")
+        say("converter", t0, f"the eval harness on the converted scene: 1 batch of 4 images, losses "
+            f"{np.array2string(res['loss'], precision=5)}, summary row {summary[1]}")
+
+
 def trace_kernels(path):
     """Launch counts by kernel name of the CUDA kernels in a torch.profiler Chrome trace."""
     import collections
@@ -2284,6 +2640,7 @@ def main():
     from casapose_tpu_torch.core.numerics import f32_precision
     from casapose_tpu_torch.entry import build_inference_step
     from casapose_tpu_torch.ops import _build
+    from casapose_tpu_torch.ops.connected_components import connected_components_kernel
     from casapose_tpu_torch.ops.plain import plain_kernels
     from casapose_tpu_torch.ops.pnp_kernel import solve_pnp_kernel, solve_pnp_plain
     from casapose_tpu_torch.ops.voting import class_masks, einsum_sums, filtered_labels
@@ -2311,6 +2668,7 @@ def main():
         report = [ln.strip() for ln in _build.ptxas_report(name).splitlines() if "registers" in ln or "spill" in ln]
         print(f"  ptxas {name}.cu: " + " | ".join(report), flush=True)
     say("build", t0, f"built {', '.join(s + '.cu' for s in _build.SOURCES)} into {_build.BUILD_DIR}")
+    kernels["cc"] = {"max_abs_err": 0, "launches_by_path": {}, "sweeps_by_path": {}}
 
     # 3. PnP kernel against its plain version, B = 256, N = 9
     t0 = time.time()
@@ -2396,10 +2754,11 @@ def main():
         cam = torch.tensor(CAMERA, device=dev).expand(b, 3, 3).contiguous()
         noise = torch.from_numpy(rng.normal(size=(b, H, W, 3)).astype(np.float32)).to(dev)
         cases += [(f"zero b={b}", torch.zeros(b, H, W, 3, device=dev), kp3, cam), (f"noise b={b}", noise, kp3, cam)]
-    launch_counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel}
+    launch_counters = {"voting": voting_accumulate, "pnp": solve_pnp_kernel, "cc": connected_components_kernel}
     for fn in launch_counters.values():
         fn.launches = 0
-    results = [step(img, kp3, cam, return_points=True) for _, img, kp3, cam in cases]
+    with cc_recording() as cc_records:
+        results = [step(img, kp3, cam, return_points=True) for _, img, kp3, cam in cases]
     torch.cuda.synchronize()
     for name, fn in launch_counters.items():
         kernels[name]["launches_by_path"] = {"inference step": fn.launches}
@@ -2437,7 +2796,9 @@ def main():
             f"kernel {int((r_k < 1e-4).sum())}, plain {int((r_p < 1e-4).sum())}, kernel worse by > 0.1% on "
             f"{int((r_k > r_p * 1.001 + 1e-4).sum())}, plain worse on {int((r_p > r_k * 1.001 + 1e-4).sum())}")
     say("step", t0, f"launches on the main path: { {n: kernels[n]['launches_by_path'] for n in launch_counters} }")
-    del results
+    hold_cc("inference step", cc_records, kernels, t0, "step")
+    main_fg = cc_records[-1][0]  # noise b=32: the main path's own 256 masks of 120x160
+    del results, cc_records
 
     # 6. timings: the step, its stages (as the step runs them: no grad, TF32 off), then each kernel
     t0 = time.time()
@@ -2454,6 +2815,9 @@ def main():
     seg, dirs, conf = out[..., :SEG_DIM], out[..., SEG_DIM : SEG_DIM + 2 * K_POINTS], out[..., SEG_DIM + 2 * K_POINTS :]
     labels, hot = class_masks(seg, torch.float32, True)
     lab_f = filtered_labels(labels, hot)
+    # The same batch's class masks at full resolution, for the CC kernel at --cc_filter_downsample 1 (phase 27).
+    full_fg = (labels[..., None] == torch.arange(1, SEG_DIM, device=dev)).permute(0, 3, 1, 2).reshape(-1, H, W)
+    full_fg = full_fg.contiguous()
     coords = step(img, kp3, cam, return_points=True)[1]
     pts2d, _ = substitute_degenerate(coords.reshape(-1, K_POINTS, 2).flip(-1), kp3.reshape(-1, K_POINTS, 3), cam[0])
     pts2d, pts3d, K0 = pts2d.contiguous(), kp3.reshape(-1, K_POINTS, 3).contiguous(), cam[0].contiguous()
@@ -2520,11 +2884,20 @@ def main():
     phase_xla_pnp(dev, kernels)  # 24
     phase_export(dev, model, kernels)  # 25
     phase_serving_clis(dev)  # 26
+    del model, img
+    torch.cuda.empty_cache()
+    phase_cc(dev, kernels, main_fg, full_fg)  # 27
+    del main_fg, full_fg
+    phase_sync(dev)  # 28
+    phase_pipeline(dev)  # 29
+    phase_converter(dev)  # 30
 
     meta = {
         "voting": ("casapose_tpu_torch/csrc/voting.cu", "casapose_tpu/ops/voting_kernel.py:103"),
         "pnp": ("casapose_tpu_torch/csrc/pnp.cu", "casapose_tpu/ops/pnp_kernel.py:489"),
         "lm_refine": ("casapose_tpu_torch/csrc/pnp.cu", "casapose_tpu/ops/pnp_kernel.py:167"),
+        # Not a TPU kernel: the JAX package labels in XLA, a lax.while_loop of flood sweeps (no pallas_call).
+        "cc": ("casapose_tpu_torch/csrc/cc.cu", "casapose_tpu/ops/connected_components.py:50"),
     }
     line = []
     for name, (source, replaces) in meta.items():
@@ -2534,8 +2907,9 @@ def main():
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"], "kernel_ms": k["kernel_ms"], "call_ms": k["call_ms"],
                      "kernel_ms_method": KERNEL_MS_METHOD[name], "launches_by_path": k["launches_by_path"],
-                     **{key: k[key] for key in ("kernel_ms_by_B", "kernel_ms_random_labels", "xla_call_ms_by_B", "bf16c")
-                        if key in k}})
+                     **{key: k[key] for key in ("kernel_ms_by_B", "kernel_ms_random_labels", "xla_call_ms_by_B", "bf16c",
+                                                "sweeps_by_path", "by_case") if key in k},
+                     **({"pallas_call": False} if name == "cc" else {})})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

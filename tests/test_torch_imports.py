@@ -35,6 +35,9 @@ assert harness_slice <= set(names), sorted(harness_slice - set(names))
 serving_slice = {"casapose_tpu_torch." + m for m in (
     "data.image_only", "ops.quant", "core.export", "test_minimal", "export_model")}
 assert serving_slice <= set(names), sorted(serving_slice - set(names))
+tools_slice = {"casapose_tpu_torch." + m for m in (
+    "ops.connected_components", "ops.cc_kernel", "data.raster", "dataset_converter", "convert_h5_weights")}
+assert tools_slice <= set(names), sorted(tools_slice - set(names))
 from casapose_tpu_torch.core.checkpoint import h5py_available
 assert not h5py_available()
 print(len(names))
@@ -50,11 +53,13 @@ from casapose_tpu_torch.models.registry import get_model
 from casapose_tpu_torch.utils.config import parse_config
 from casapose_tpu_torch.test_minimal import run_minimal
 from casapose_tpu_torch.export_model import run_export
+from casapose_tpu_torch.convert_h5_weights import main as convert_h5
 opt = parse_config(["--estimate_confidence", "1", "--estimate_coords", "1", "--object", "obj_000001",
                     "--export_path", "unused.pt2"])
 for call in (lambda: build_inference_step(), lambda: get_model("casapose_c_gcu5", 27, 9), lambda: run_evaluation(opt),
              lambda: main(["--estimate_confidence", "1", "--estimate_coords", "1", "--object", "obj_000001"]),
-             lambda: run_training(opt), lambda: run_minimal(opt), lambda: run_export(opt)):
+             lambda: run_training(opt), lambda: run_minimal(opt), lambda: run_export(opt),
+             lambda: convert_h5(["in.h5", "out.npz", "--objects", "1"])):
     try:
         call()
     except RuntimeError as e:
@@ -73,7 +78,7 @@ def _run(code):
 def test_every_module_imports_without_jax_or_the_jax_package():
     proc = _run(_POISONED_IMPORT)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 44  # every module of the slices was walked
+    assert int(proc.stdout.split()[-1]) >= 48  # every module of the slices was walked
 
 
 def test_entry_points_raise_without_cuda():
