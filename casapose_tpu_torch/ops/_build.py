@@ -33,6 +33,7 @@ _SIGNATURES = {
     "solve_pnp": ("pnp", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "lm_refine": ("pnp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "cc_label": ("cc", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "cc_config": ("cc", [_I, _I, _P]),
 }
 SOURCES = sorted({src for src, _ in _SIGNATURES.values()})
 

@@ -3,8 +3,9 @@
 Counterpart of ``casapose_tpu/ops/connected_components.py::connected_components_labels``,
 which the JAX package runs in XLA as a ``lax.while_loop`` of flood sweeps (no
 Pallas kernel). :func:`connected_components_kernel` runs the whole loop in one
-launch of the CUDA kernel ``csrc/cc.cu`` for CUDA tensors, with no host read,
-and :func:`connected_components_plain` for CPU tensors: the loop in PyTorch,
+launch of the CUDA kernel ``csrc/cc.cu`` for CUDA tensors (a block per mask, a
+warp per line, shuffle scans along it), with no host read, and
+:func:`connected_components_plain` for CPU tensors: the loop in PyTorch,
 which reads a "changed" flag on the host after every sweep. The segmented
 max-scan there is a ``cummax`` over ``segment * BIG + value``: the segment id
 (a running count of background resets) is non-decreasing, so the maximum
@@ -90,3 +91,14 @@ def connected_components_kernel(fg, max_sweeps=MAX_SWEEPS, return_sweeps=False):
 
 
 connected_components_kernel.launches = 0
+
+
+def kernel_config(h, w):
+    """What the CC kernel launches for masks of ``h`` x ``w`` on the current card: threads a block, blocks an SM
+    holds, dynamic shared memory, the path (shared or device memory) and registers a thread."""
+    out = (ctypes.c_int * 5)()
+    rc = _build.load("cc").cc_config(int(h), int(w), ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"cc_config failed: CUDA error {rc}")
+    keys = ("threads", "blocks_per_sm", "smem_bytes", "shared", "registers")
+    return dict(zip(keys, out))

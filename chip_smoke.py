@@ -140,11 +140,13 @@ Phases, one line each with its seconds:
  26. clis: python -m casapose_tpu_torch.test_minimal and python -m
      casapose_tpu_torch.export_model on a written 480x640 scene;
  27. cc: the CC kernel (csrc/cc.cu, the JAX package's lax.while_loop of flood
-     sweeps in one launch) against its plain loop on the main path's own
-     masks (b=32, 256 of 120x160, shared memory), at full resolution (the
-     same batch's 480x640 class masks, device memory) and on two serpentines
-     that reach the 64-sweep cap: labels exactly equal, sweeps counted,
-     kernel_ms, call_ms, the plain loop's ms and a bound. Phases 5, 8, 13,
+     sweeps in one launch, a warp per line) against its plain loop on the main
+     path's own masks (b=32, 256 of 120x160, shared memory, and its first 8,
+     b=1), at full resolution (the same batch's 480x640 class masks, device
+     memory) and on two serpentines that reach the 64-sweep cap: labels
+     exactly equal, sweeps counted, kernel_ms, call_ms, the plain loop's ms
+     and a bound; the launch (threads, registers, spills, blocks an SM) at
+     both resolutions, failing on a spill. Phases 5, 8, 13,
      14 and 22 hold each CC launch of their paths against the plain loop and
      count its sweeps and the masks at the cap;
  28. sync: the inference step (float32, bfloat16) and the LS eval step
@@ -2374,11 +2376,17 @@ def hold_cc(label, records, kernels, t0, phase):
 
 def phase_cc(dev, kernels, main_fg, full_fg):
     """27. The CC kernel against its plain loop at the default resolution (the main path's own masks, phase 5's
-    b=32 noise batch: 256 masks of 120x160), at full resolution (the same batch's 480x640 class masks, the
-    --cc_filter_downsample 1 path) and on serpentines that reach the 64-sweep cap; labels exactly equal, sweeps
-    counted; kernel_ms, call_ms and the plain loop's ms at both resolutions, with a byte bound."""
+    b=32 noise batch: 256 masks of 120x160, and its first 8, the b=1 case), at full resolution (the same batch's
+    480x640 class masks, the --cc_filter_downsample 1 path) and on serpentines that reach the 64-sweep cap; labels
+    exactly equal, sweeps counted; kernel_ms, call_ms and the plain loop's ms, with a byte bound. First the
+    kernel's launch at both resolutions: threads a block, registers a thread, blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and ptxas's spills, which fail the phase."""
+    import re
+
     import torch
 
+    from casapose_tpu_torch.ops import _build
+    from casapose_tpu_torch.ops.cc_kernel import kernel_config
     from casapose_tpu_torch.ops.connected_components import (
         MAX_SWEEPS,
         connected_components_kernel,
@@ -2387,7 +2395,21 @@ def phase_cc(dev, kernels, main_fg, full_fg):
 
     t0 = time.time()
     k = kernels["cc"]
-    cases = [("default resolution, the main path's masks", main_fg), ("full resolution", full_fg),
+    report = [ln.strip() for ln in _build.ptxas_report("cc").splitlines() if "registers" in ln or "spill" in ln]
+    spills = [int(x) for ln in report for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
+    k["config"] = {}
+    for shape in (tuple(main_fg.shape[1:]), tuple(full_fg.shape[1:])):
+        cfg = kernel_config(*shape)
+        k["config"]["x".join(map(str, shape))] = cfg
+        say("cc", t0, f"launch at {shape[0]}x{shape[1]}: {cfg['threads']} threads a block ({cfg['threads'] // 32} "
+            f"warps), {'shared' if cfg['shared'] else 'device'} memory ({cfg['smem_bytes']} B of dynamic shared "
+            f"memory), {cfg['registers']} registers a thread, {cfg['blocks_per_sm']} blocks an SM")
+    say("cc", t0, "ptxas cc.cu: " + " | ".join(report))
+    if not spills or any(spills):
+        raise AssertionError(f"cc: ptxas reports spills (or no spill line): {report}")
+    cases = [("default resolution, the main path's masks", main_fg),
+             ("default resolution, b=1: the main path's first 8 masks", main_fg[:8].contiguous()),
+             ("full resolution", full_fg),
              ("serpentine 120x160 (80 vertical corridors)", torch.from_numpy(serpentine(120, 160, True)).to(dev)),
              ("serpentine 480x640 (240 corridors across)", torch.from_numpy(serpentine(480, 640)).to(dev))]
     for name, fg in cases:
@@ -2403,7 +2425,7 @@ def phase_cc(dev, kernels, main_fg, full_fg):
         if name.startswith("serpentine") and n != MAX_SWEEPS:
             raise AssertionError(f"cc {name}: {n} sweeps, expected the cap {MAX_SWEEPS}")
         m, h, w = fg.shape
-        small = h * w <= 120 * 160  # the shared-memory path; larger masks sweep in device memory, ~100x slower
+        small = h * w <= 120 * 160  # the shared-memory path; larger masks sweep in device memory, many times slower
         own = kernel_ms("cc", lambda: connected_components_kernel(fg), iters=20 if small else 4, reps=5 if small else 1)
         call = cuda_ms(lambda: connected_components_kernel(fg), 20 if small else 2)
         plain_ms = cuda_ms(lambda: connected_components_plain(fg), 2, warmup=0)
@@ -2417,7 +2439,7 @@ def phase_cc(dev, kernels, main_fg, full_fg):
         by = "bytes" if c_bytes / PEAK_BYTES_PER_S >= c_ops / PEAK_F32_FLOP_PER_S else "operations"
         k.setdefault("by_case", {})[name] = {"shape": [m, h, w], "sweeps": n, "kernel_ms": own, "call_ms": call,
                                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
-        if name.startswith("default"):
+        if name == cases[0][0]:
             k.update(kernel_ms=own, ms=own, call_ms=call, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                      library_ms=None)
         say("cc", t0, f"{name} {[m, h, w]}: labels equal to the plain loop's exactly, the same on a second run; "

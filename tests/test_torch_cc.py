@@ -4,14 +4,18 @@ Three labellings of the same masks must be equal exactly, with JAX's
 ``connected_components_labels`` and ``largest_component_mask`` as the
 reference: the port's plain loop (``connected_components_plain``), and the
 kernel's own sweeps compiled for the host (``csrc/cc_host.cpp``, built with
-g++ as ``voting_host.cpp`` is). The cases: ``tests/test_cc_filter.py``'s
-LMO-like masks (ellipses, satellites at the 50 px boundary, speckle),
-seeded random masks, and a serpentine that needs more than the 64-sweep cap,
-where all three stop with the same labels that are not final. The host
-build's sweep count per mask is held against the plain loop's count.
+g++ as ``voting_host.cpp`` is: the kernel's 32 lanes emulated, in both of
+its layouts). The cases: ``tests/test_cc_filter.py``'s LMO-like masks
+(ellipses, satellites at the 50 px boundary, speckle), seeded random masks,
+a serpentine that needs more than the 64-sweep cap, where all three stop
+with the same labels that are not final, and lines of every length around
+the kernel's lane chunks and tiles with runs on and across the lanes'
+edges. The host build's sweep count per mask is held against the plain
+loop's count.
 """
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -61,15 +65,24 @@ def host_cc(tmp_path_factory):
     src = os.path.join(ROOT, "casapose_tpu_torch", "csrc", "cc_host.cpp")
     subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", lib_path, src], check=True)
     lib = ctypes.CDLL(lib_path)
-    lib.cc_label_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    lib.cc_label_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     lib.cc_label_host.restype = ctypes.c_int
 
-    def run(fg, max_sweeps=CAP):
-        fg = np.ascontiguousarray(fg, dtype=np.uint8)
+    def run_layout(fg, max_sweeps, shared_layout):
         m, h, w = fg.shape
         labels = np.zeros((m, h, w), np.int32)
         sweeps = np.zeros((m,), np.int32)
-        assert lib.cc_label_host(fg.ctypes.data, labels.ctypes.data, sweeps.ctypes.data, m, h, w, max_sweeps) == 0
+        assert lib.cc_label_host(fg.ctypes.data, labels.ctypes.data, sweeps.ctypes.data, m, h, w, max_sweeps,
+                                 shared_layout) == 0
+        return labels, sweeps
+
+    def run(fg, max_sweeps=CAP):
+        """The kernel's sweeps in its shared-memory layout, checked equal to those in its device-memory layout."""
+        fg = np.ascontiguousarray(fg, dtype=np.uint8)
+        labels, sweeps = run_layout(fg, max_sweeps, 1)
+        labels_dev, sweeps_dev = run_layout(fg, max_sweeps, 0)
+        np.testing.assert_array_equal(labels_dev, labels)
+        np.testing.assert_array_equal(sweeps_dev, sweeps)
         return labels, sweeps
 
     return run
@@ -97,6 +110,90 @@ def test_labels_exactly_equal_jax(case, host_cc):
     else:
         assert n_sweeps < CAP
         assert (host_sweeps >= 1).all()
+
+
+# Line lengths around the kernel's chunking: a lane holds chunk(n) = min(ceil(n / 32), 5) consecutive elements of a
+# line (1 up to 32, 2 from 33, ...), a warp a tile of 32 * chunk(n); lines longer than 160 span tiles.
+LINE_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 120, 160, 161, 257, 300, 320, 481)
+
+
+def _chunk(n):
+    return min(-(-n // 32), 5)
+
+
+def _line_pattern(n, pattern):
+    """A foreground pattern along a line of n: runs on and across the lane chunks' edges."""
+    i, e = np.arange(n), _chunk(n)
+    if pattern == "all":
+        return np.ones(n, bool)
+    if pattern == "alternating":
+        return i % 2 == 0
+    if pattern == "gap ending each chunk":  # runs end on a lane's last element, the next starts on a lane edge
+        return i % e != e - 1 if e > 1 else i % 3 != 2
+    if pattern == "runs across lane edges":  # runs of chunk + 1: every run crosses a lane edge, at drifting offsets
+        return i % (e + 2) != e + 1
+    return np.random.default_rng(n).random(n) < 0.75
+
+
+LINE_PATTERNS = ("all", "alternating", "gap ending each chunk", "runs across lane edges", "random")
+
+
+def _line_masks(n, pattern):
+    """Masks whose rows are lines of n with the pattern p (p, p with each gap's right neighbour filled, p: the middle
+    row joins the others' runs), then the same transposed, whose columns are; for "random", two seeded random
+    8 x n masks and their transposes."""
+    if pattern == "random":
+        rng = np.random.default_rng(n)
+        masks = [rng.random((8, n)) < 0.55, rng.random((8, n)) < 0.7]
+    else:
+        p = _line_pattern(n, pattern)
+        masks = [np.stack([p, p | np.roll(p, 1), p])]
+    return [np.ascontiguousarray(m) for m in masks + [m.T for m in masks]]
+
+
+@functools.lru_cache(maxsize=None)
+def _line_references():
+    """JAX's labels of every line mask, {(n, pattern): [(mask, labels), ...]}, from one JAX call: the masks are
+    packed into one canvas with background between them, so no component leaves its mask and, as a label is a
+    component's largest linear index + 1 in row-major order, each canvas label maps to the mask's own."""
+    from casapose_tpu.ops.connected_components import connected_components_labels as jax_cc
+
+    blocks = [(key, m) for key in ((n, pattern) for n in LINE_LENGTHS for pattern in LINE_PATTERNS)
+              for m in _line_masks(*key)]
+    width, places, x, y, shelf = 1024, [], 0, 0, 0
+    for _, m in blocks:  # shelves, left to right, one free row and column after each mask
+        if x + m.shape[1] > width:
+            x, y, shelf = 0, y + shelf + 1, 0
+        places.append((y, x))
+        x, shelf = x + m.shape[1] + 1, max(shelf, m.shape[0])
+    canvas = np.zeros((1, y + shelf, width), bool)
+    for (_, m), (y0, x0) in zip(blocks, places):
+        canvas[0, y0 : y0 + m.shape[0], x0 : x0 + m.shape[1]] = m
+    ref = np.asarray(jax_cc(canvas))[0]
+    out = {}
+    for (key, m), (y0, x0) in zip(blocks, places):
+        h, w = m.shape
+        lab = ref[y0 : y0 + h, x0 : x0 + w].astype(np.int64)
+        r, c = np.divmod(lab - 1, width)
+        inside = (r >= y0) & (r < y0 + h) & (c >= x0) & (c < x0 + w)
+        assert inside[m].all() and not lab[~m].any()
+        out.setdefault(key, []).append((m, np.where(m, (r - y0) * w + (c - x0) + 1, 0).astype(np.int32)))
+    return out
+
+
+@pytest.mark.parametrize("n", LINE_LENGTHS)
+@pytest.mark.parametrize("pattern", LINE_PATTERNS)
+def test_line_lengths_exactly_equal_jax(n, pattern, host_cc):
+    """Rows, then columns, of length n with the pattern: the host build's lanes, in both of the kernel's layouts,
+    give JAX's labels, and the plain loop's labels and sweeps, mask by mask."""
+    from casapose_tpu_torch.ops.connected_components import connected_components_plain
+
+    for fg, ref in _line_references()[(n, pattern)]:
+        host, host_sweeps = host_cc(fg[None])
+        np.testing.assert_array_equal(host[0], ref)
+        plain, n_sweeps = connected_components_plain(torch.from_numpy(fg[None]), return_sweeps=True)
+        np.testing.assert_array_equal(plain.numpy()[0], ref)
+        assert host_sweeps[0] == n_sweeps < CAP
 
 
 @pytest.mark.parametrize("case", ["lmo-like", "random 5", "serpentine"])
